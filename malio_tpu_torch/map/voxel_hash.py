@@ -1,0 +1,432 @@
+"""Device-resident voxel-hash map with batched k-NN (counterpart of
+malio_tpu/map/voxel_hash.py, the replacement of the reference's ikd-Tree).
+
+`tab` is (R, SLOTS, 5): row r holds SLOTS slots of [fp, x, y, z, cov] and
+is keyed by a supervoxel (a 2x2x2 block of map voxels, key >> 1). A voxel
+keeps the lowest-covariance point offered to it; insert is one sort plus
+one uniquely-indexed write; searches gather whole supervoxel rows and rank
+by true distance. The int32 hash and fingerprint are emulated in int64
+with 32-bit masks, bit-equal to the JAX package for negative keys too.
+
+Every function returns a new map and leaves its input untouched, as the
+JAX package does (one table copy per insert or eviction).
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import knn as knn_ops
+from ..ops.knn import topk_min  # noqa: F401  (the map's k-smallest selection)
+from ..preprocess import MASK32, mul32
+
+_P1, _P2, _P3 = 73856093, 19349663, 83492791
+_F1, _F2, _F3 = 1540483477, 1274126177, 868864169
+SLOTS = 32
+NUM_MATCH_POINTS = 5
+CACHE_K = 16
+_WINDOW_CHUNK = 64
+
+
+class VoxelHashMap(NamedTuple):
+    tab: torch.Tensor  # (R, SLOTS, 5) rows [fp, x, y, z, cov]
+    voxel_size: torch.Tensor  # ()
+    n_dropped: torch.Tensor  # () int32 cumulative insert overflow drops
+    n_evicted: torch.Tensor  # () int32 cumulative evict-replace displacements
+
+    @property
+    def capacity(self) -> int:
+        return self.tab.shape[-3] * SLOTS
+
+    @property
+    def flat(self):
+        return self.tab.reshape(-1, 5)
+
+
+def create(capacity: int, voxel_size: float, dtype=torch.float32, device="cpu") -> VoxelHashMap:
+    assert capacity & (capacity - 1) == 0, "capacity must be a power of two"
+    assert capacity >= SLOTS
+    R = capacity // SLOTS
+    tab = torch.zeros((R, SLOTS, 5), dtype=dtype, device=device)
+    tab[:, :, 4] = float("inf")
+    return VoxelHashMap(
+        tab=tab,
+        voxel_size=torch.tensor(voxel_size, dtype=dtype, device=device),
+        n_dropped=torch.zeros((), dtype=torch.int32, device=device),
+        n_evicted=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def voxel_key(m: VoxelHashMap, pts):
+    """int64 voxel keys (values in int32 range)."""
+    return torch.floor(pts / m.voxel_size).to(torch.int32).to(torch.int64)
+
+
+def _svx(keys):
+    """Supervoxel key: arithmetic shift, floor(k / 2) for negatives too."""
+    return keys >> 1
+
+
+def _wrap(a):
+    """Low 32 bits of an int64 product (the int32 wraparound result)."""
+    return a & MASK32
+
+
+def _hash(svx_keys, num_rows: int):
+    """Row index of a supervoxel key: xor of int32 products, murmur mix."""
+    h = (
+        _wrap(svx_keys[..., 0] * _P1)
+        ^ _wrap(svx_keys[..., 1] * _P2)
+        ^ _wrap(svx_keys[..., 2] * _P3)
+    )
+    u = h ^ (h >> 16)
+    u = mul32(u, 0x7FEB352D)
+    u = u ^ (u >> 15)
+    u = mul32(u, 0x846CA68B)
+    u = u ^ (u >> 16)
+    return u & (num_rows - 1)
+
+
+def _fingerprint(keys):
+    """Nonzero 23-bit fingerprint of a voxel key (0 marks an empty slot)."""
+    h = _wrap(
+        _wrap(keys[..., 0] * _F1) + _wrap(keys[..., 1] * _F2) + _wrap(keys[..., 2] * _F3)
+    )
+    u = h ^ (h >> 16)
+    u = mul32(u, 0x85EBCA6B)
+    u = u ^ (u >> 13)
+    u = mul32(u, 0xC2B2AE35)
+    u = u ^ (u >> 16)
+    f = u >> 9
+    return torch.where(f == 0, torch.ones_like(f), f)
+
+
+def _first_true(mask):
+    """Index of the first True along the last axis (0 if none), like
+    jnp.argmax on a boolean array."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
+
+
+def _segment_rank(seg_start, member):
+    memi = member.to(torch.int64)
+    exc = torch.cumsum(memi, 0) - memi
+    base = torch.cummax(torch.where(seg_start, exc, torch.full_like(exc, -1)), 0).values
+    return exc - base
+
+
+def insert(m: VoxelHashMap, pts, covs, mask) -> VoxelHashMap:
+    """Insert world points with stored covariances: one sort by (row,
+    voxel fingerprint, cov, batch index) and one uniquely-indexed write.
+    Lowest covariance wins a voxel; new voxels take the rank-th empty lane
+    of their row; a full row may displace its worst record once (counted
+    in n_evicted) or drops the candidate (counted in n_dropped)."""
+    R = m.tab.shape[0]
+    T = R * SLOTS
+    N = pts.shape[0]
+    dtype = m.tab.dtype
+    dev = m.tab.device
+    keys = voxel_key(m, pts)
+    fp = _fingerprint(keys)
+    b = torch.where(mask, _hash(_svx(keys), R), torch.full_like(fp, R))
+    covf = torch.where(mask, covs.to(dtype), torch.full_like(covs, float("inf"), dtype=dtype))
+
+    # lexicographic (b, fp, cov, index): chained stable sorts, least
+    # significant key first; the index tiebreak is the stability itself
+    idx = torch.arange(N, device=dev)
+    o = torch.argsort(covf, stable=True)
+    o = o[torch.argsort(fp[o], stable=True)]
+    o = o[torch.argsort(b[o], stable=True)]
+    idx_s = idx[o]
+    b_s, fp_s, cov_s = b[o], fp[o], covf[o]
+    pts_s = pts.to(dtype)[idx_s]
+    live = b_s < R
+    rec_s = torch.cat([fp_s.to(dtype)[:, None], pts_s, cov_s[:, None]], dim=-1)
+
+    prev_b = torch.cat([torch.full((1,), -1, dtype=b_s.dtype, device=dev), b_s[:-1]])
+    prev_fp = torch.cat([torch.full((1,), -1, dtype=fp_s.dtype, device=dev), fp_s[:-1]])
+    row_start = b_s != prev_b
+    vox_first = live & (row_start | (fp_s != prev_fp))
+
+    rows = m.tab[torch.clamp(b_s, max=R - 1)]  # (N, SLOTS, 5)
+    fps = rows[..., 0]
+    match = fps == fp_s.to(dtype)[:, None]
+    found = torch.any(match, dim=-1)
+    mlane = _first_true(match)
+    stored_cov = torch.gather(rows[..., 4], 1, mlane[:, None])[:, 0]
+
+    upd = vox_first & found & (cov_s < stored_cov)
+    claimer = vox_first & ~found
+    rank = _segment_rank(row_start, claimer)
+    empty = fps == 0
+    n_empty = torch.sum(empty, dim=-1)
+    csum = torch.cumsum(empty.to(torch.int64), dim=-1)
+    clane = _first_true((csum == (rank + 1)[:, None]) & empty)
+    fits = claimer & (rank < n_empty)
+
+    over = claimer & (rank >= n_empty)
+    occ_cov = torch.where(empty, torch.full_like(rows[..., 4], -float("inf")), rows[..., 4])
+    vcov, _ = torch.max(occ_cov, dim=-1)
+    vlane = torch.argmax(occ_cov, dim=-1)
+    seg_id = torch.cumsum(row_start.to(torch.int64), 0) - 1
+    row_upd = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(
+        0, seg_id, upd.to(torch.int64)
+    )[seg_id]
+    evict = over & (rank == n_empty) & (cov_s < vcov) & (row_upd == 0)
+
+    writes = upd | fits | evict
+    lane = torch.where(upd, mlane, torch.where(evict, vlane, clane))
+    slot = b_s * SLOTS + lane
+    tgt = torch.where(writes, slot, torch.full_like(slot, T))  # T = dump row
+    flat = torch.cat([m.tab.reshape(T, 5), torch.zeros((1, 5), dtype=dtype, device=dev)])
+    flat[tgt] = rec_s
+    dropped = torch.sum(over & ~evict).to(torch.int32)
+    evicted = torch.sum(evict).to(torch.int32)
+    return m._replace(
+        tab=flat[:T].reshape(R, SLOTS, 5),
+        n_dropped=m.n_dropped + dropped,
+        n_evicted=m.n_evicted + evicted,
+    )
+
+
+def evict_outside(m: VoxelHashMap, box_min, box_max) -> VoxelHashMap:
+    """Free every cell whose point lies outside [box_min, box_max]."""
+    flat = m.flat
+    inside = torch.all((flat[:, 1:4] >= box_min) & (flat[:, 1:4] <= box_max), dim=-1)
+    keep = (flat[:, 0] != 0) & inside
+    new = flat.clone()
+    new[:, 0] = torch.where(keep, flat[:, 0], torch.zeros_like(flat[:, 0]))
+    new[:, 4] = torch.where(keep, flat[:, 4], torch.full_like(flat[:, 4], float("inf")))
+    return m._replace(tab=new.reshape(m.tab.shape))
+
+
+def size(m: VoxelHashMap):
+    return torch.sum(m.flat[:, 0] != 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _svx_ball_offsets(radius: int) -> np.ndarray:
+    """Supervoxel offsets from the anchor (v - radius) >> 1 that can hold a
+    cell within `radius` voxels of a query voxel v, for either parity."""
+    span = radius + 1
+    d = np.arange(span)
+    offs = np.stack(np.meshgrid(d, d, d, indexing="ij"), -1).reshape(-1, 3)
+    keep = []
+    for o in offs:
+        ok = False
+        for eps in ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+                    (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1)):
+            gap2 = 0.0
+            for ax in range(3):
+                deltas = [2 * o[ax] - radius - eps[ax], 2 * o[ax] - radius - eps[ax] + 1]
+                g = max(min(abs(v) for v in deltas) - 1, 0)
+                gap2 += g * g
+            if gap2 <= radius * radius:
+                ok = True
+                break
+        if ok:
+            keep.append(o)
+    return np.asarray(keep, np.int32)
+
+
+def _offsets(radius: int, device):
+    return torch.as_tensor(_svx_ball_offsets(radius), dtype=torch.int64, device=device)
+
+
+def _sqdist(pts, q):
+    """Squared distances, summed x, y, z in that order."""
+    d = pts - q
+    return (d * d).sum(-1)
+
+
+def _dup_rows(b_all):
+    """Offset j is dead if an earlier offset hashed to the same row."""
+    Q, V = b_all.shape
+    if V <= 1:
+        return torch.zeros((Q, V), dtype=torch.bool, device=b_all.device)
+    eq = b_all[:, :, None] == b_all[:, None, :]
+    tri = torch.tril(torch.ones((V, V), dtype=torch.bool, device=b_all.device), -1)
+    return torch.any(eq & tri[None], dim=-1)
+
+
+def _topk_extract(queries, cand_pts, cand_covs, cand_valid, k: int, use_kernel: bool):
+    """Top-k nearest candidates with their values. The masked d2 is
+    computed once here and shared by both selection paths, so kernel and
+    plain outputs are bit-equal."""
+    dtype = cand_covs.dtype
+    big = torch.finfo(dtype).max
+    d2 = _sqdist(cand_pts, queries[:, None, :])
+    d2 = torch.where(cand_valid, d2, torch.full_like(d2, big))
+    cand_covs = torch.where(cand_valid, cand_covs, torch.zeros_like(cand_covs))
+    if use_kernel:
+        return knn_ops.topk_candidates(d2, cand_pts.contiguous(), cand_covs, k)
+    return knn_ops.topk_candidates_plain(d2, cand_pts, cand_covs, k)
+
+
+def _take(x, idx):
+    """take_along_axis on axis 1 for (Q, C) or (Q, C, 3)."""
+    if x.dim() == 3:
+        return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+    return torch.gather(x, 1, idx)
+
+
+def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool = False):
+    """k nearest stored points over the supervoxel window of `radius`. The
+    kernel path gathers the whole window once; the plain path streams it
+    in chunks of _WINDOW_CHUNK rows with a running top-k merge."""
+    dtype = m.tab.dtype
+    queries = queries.to(dtype)
+    dev = m.tab.device
+    offs = _offsets(radius, dev)
+    V = offs.shape[0]
+    R = m.tab.shape[0]
+    Q = queries.shape[0]
+    big = torch.finfo(dtype).max
+
+    anchors = _svx(voxel_key(m, queries) - radius)
+    b_all = _hash(anchors[:, None, :] + offs[None], R)  # (Q, V)
+    alive = ~_dup_rows(b_all)
+
+    if use_kernel:
+        rows = m.tab[b_all]  # (Q, V, SLOTS, 5)
+        occ = (rows[..., 0] != 0) & alive[..., None]
+        nn_pts, nn_covs, nn_d2 = _topk_extract(
+            queries, rows[..., 1:4].reshape(Q, V * SLOTS, 3),
+            rows[..., 4].reshape(Q, V * SLOTS), occ.reshape(Q, V * SLOTS), k,
+            use_kernel=True,
+        )
+        return nn_pts, nn_covs, nn_d2, torch.sum(nn_d2 < big, dim=-1)
+
+    def chunk_candidates(b_c, alive_c):
+        rows = m.tab[b_c]
+        occ = (rows[..., 0] != 0) & alive_c[..., None]
+        cpts = rows[..., 1:4]
+        d2 = _sqdist(cpts, queries[:, None, None, :])
+        d2 = torch.where(occ, d2, torch.full_like(d2, big))
+        C = b_c.shape[1]
+        return (
+            cpts.reshape(Q, C * SLOTS, 3),
+            rows[..., 4].reshape(Q, C * SLOTS),
+            d2.reshape(Q, C * SLOTS),
+        )
+
+    if V <= _WINDOW_CHUNK:
+        cand_pts, cand_cov, d2 = chunk_candidates(b_all, alive)
+        nn_d2, idx = topk_min(d2, k)
+        return _take(cand_pts, idx), _take(cand_cov, idx), nn_d2, torch.sum(nn_d2 < big, dim=-1)
+
+    nchunks = -(-V // _WINDOW_CHUNK)
+    chunk = -(-V // nchunks)
+    pad = nchunks * chunk - V
+    b_p = torch.cat([b_all, torch.zeros((Q, pad), dtype=b_all.dtype, device=dev)], dim=1)
+    alive_p = torch.cat([alive, torch.zeros((Q, pad), dtype=torch.bool, device=dev)], dim=1)
+    b_pts = torch.zeros((Q, k, 3), dtype=dtype, device=dev)
+    b_covs = torch.zeros((Q, k), dtype=dtype, device=dev)
+    b_d2 = torch.full((Q, k), big, dtype=dtype, device=dev)
+    for c in range(nchunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        c_pts, c_covs, c_d2 = chunk_candidates(b_p[:, sl], alive_p[:, sl])
+        all_pts = torch.cat([b_pts, c_pts], dim=1)
+        all_covs = torch.cat([b_covs, c_covs], dim=1)
+        all_d2 = torch.cat([b_d2, c_d2], dim=1)
+        b_d2, idx = topk_min(all_d2, k)
+        b_pts, b_covs = _take(all_pts, idx), _take(all_covs, idx)
+    return b_pts, b_covs, b_d2, torch.sum(b_d2 < big, dim=-1)
+
+
+def knn_cached(
+    m: VoxelHashMap,
+    queries,
+    radius: int = 1,
+    wide_radius: int = 0,
+    wide_budget: int = 0,
+    qmask=None,
+    accept_d2=5.0,
+    accept_k: int = NUM_MATCH_POINTS,
+    cache_k: int = CACHE_K,
+    use_kernel: bool = False,
+):
+    """k-NN (k = accept_k) plus the compact top-`cache_k` candidate cache.
+
+    Returns (nn_pts (Q, ak, 3), nn_covs, nn_d2, nn_cnt, n_miss,
+    cache_pts (Q, cache_k, 3), cache_covs, cache_valid). Queries failing
+    the acceptance rule (accept_k found, accept_k-th d2 <= accept_d2) are
+    re-searched over the ball-pruned wide window, up to wide_budget of
+    them; a small always-on tier of 256 takes the common case and the full
+    budget runs only when demand exceeds it. The tier is chosen on the host
+    (one device read of the escalation count)."""
+    assert cache_k >= accept_k, (cache_k, accept_k)
+    dtype = m.tab.dtype
+    dev = m.tab.device
+    queries = queries.to(dtype)
+    Q = queries.shape[0]
+    big = torch.finfo(dtype).max
+    offs = _offsets(radius, dev)
+    V = offs.shape[0]
+    R = m.tab.shape[0]
+    C = V * SLOTS
+
+    anchors = _svx(voxel_key(m, queries) - radius)
+    b_all = _hash(anchors[:, None, :] + offs[None], R)
+    if qmask is not None:
+        b_all = torch.where(qmask[:, None], b_all, torch.zeros_like(b_all))
+    dup = _dup_rows(b_all)
+    rows = m.tab[b_all]  # (Q, V, SLOTS, 5)
+    occ = (rows[..., 0] != 0) & (~dup)[..., None]
+    if qmask is not None:
+        occ = occ & qmask[:, None, None]
+    cache_pts, cache_covs, cache_d2 = _topk_extract(
+        queries, rows[..., 1:4].reshape(Q, C, 3), rows[..., 4].reshape(Q, C),
+        occ.reshape(Q, C), cache_k, use_kernel,
+    )
+    del rows
+    cache_valid = cache_d2 < big
+
+    ak = accept_k
+    nn_pts, nn_covs, nn_d2 = cache_pts[:, :ak], cache_covs[:, :ak], cache_d2[:, :ak]
+    nn_cnt = torch.sum(nn_d2 < big, dim=-1)
+    acc = torch.tensor(accept_d2, dtype=dtype, device=dev)
+
+    def misses(d2k, cnt):
+        need = ~((cnt >= ak) & (d2k[:, ak - 1] <= acc))
+        if qmask is not None:
+            need = need & qmask
+        return need
+
+    if wide_budget <= 0 or wide_radius <= radius:
+        n_miss = torch.sum(misses(nn_d2, nn_cnt)).to(torch.int32)
+        return (nn_pts, nn_covs, nn_d2, nn_cnt, n_miss, cache_pts, cache_covs, cache_valid)
+
+    need = misses(nn_d2, nn_cnt)
+    needi = need.to(torch.int64)
+    rank = torch.cumsum(needi, 0) - needi
+    small = min(256, wide_budget)
+    budget = wide_budget
+    if small < wide_budget:
+        budget = wide_budget if int(torch.sum(needi)) > small else small
+
+    valid = need & (rank < budget)
+    ar = torch.arange(Q, device=dev)
+    tgt = torch.where(valid, rank, budget + ar)
+    inv = torch.full((budget + Q,), Q, dtype=torch.int64, device=dev)
+    inv[tgt] = ar
+    safe = torch.clamp(inv[:budget], max=Q - 1)
+    w_pts, w_covs, w_d2, w_cnt = _knn_window(
+        m, queries[safe], cache_k, wide_radius, use_kernel=use_kernel
+    )
+    r = torch.clamp(rank, max=budget - 1)
+    vcol = valid[:, None]
+    w_pts_r, w_covs_r, w_d2_r, w_cnt_r = w_pts[r], w_covs[r], w_d2[r], w_cnt[r]
+    o_pts = torch.where(vcol[..., None], w_pts_r[:, :ak], nn_pts)
+    o_covs = torch.where(vcol, w_covs_r[:, :ak], nn_covs)
+    o_d2 = torch.where(vcol, w_d2_r[:, :ak], nn_d2)
+    o_cnt = torch.where(valid, torch.clamp(w_cnt_r, max=ak), nn_cnt)
+    lanes = torch.arange(cache_k, device=dev)
+    w_valid = lanes[None, :] < torch.clamp(w_cnt_r, max=cache_k)[:, None]
+    cache_pts = torch.where(vcol[..., None], w_pts_r, cache_pts)
+    cache_covs = torch.where(vcol, w_covs_r, cache_covs)
+    cache_valid = torch.where(vcol, w_valid, cache_valid)
+    n_miss = torch.sum(misses(o_d2, o_cnt)).to(torch.int32)
+    return (o_pts, o_covs, o_d2, o_cnt, n_miss, cache_pts, cache_covs, cache_valid)

@@ -1,0 +1,65 @@
+"""Voxel-grid downsampling (counterpart of malio_tpu/preprocess.py;
+pcl::VoxelGrid at laserMapping.cpp:968-983): one centroid per occupied
+voxel, auxiliary channels averaged too, in a fixed-capacity padded batch.
+
+The voxel hash is uint32 arithmetic on the int32 cell keys, emulated in
+int64 with 32-bit masks so it is bit-equal to the JAX package. The segment
+sums use `torch.segment_reduce` over the sorted, contiguous segments: one
+sequential sum per segment, so the f32 centroids are deterministic on the
+card (an `index_add_` would sum with atomics in a run-dependent order).
+"""
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_P1 = 73856093
+_P2 = 19349663
+_P3 = 83492791
+
+
+def mul32(a, c: int):
+    """(a * c) mod 2^32 for int64 a in [0, 2^32) and a constant c < 2^32,
+    split in 16-bit halves so no int64 product overflows."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return ((a * lo) + (((a * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def floor_div(pts, size: float):
+    """floor(pts / size) as int64. Divides by a device tensor: on the card
+    a division by a Python scalar multiplies by its reciprocal, which can
+    move a point across a cell boundary."""
+    s = torch.full((), size, dtype=pts.dtype, device=pts.device)
+    return torch.floor(pts / s).to(torch.int32).to(torch.int64)
+
+
+def voxel_downsample(pts, aux, mask, voxel_size: float, out_cap: int):
+    """pts (P, 3), aux (P, A), mask (P,) -> (out (out_cap, 3),
+    aux_out (out_cap, A), mask_out (out_cap,))."""
+    key = floor_div(pts, voxel_size) & MASK32  # uint32 bits of the int32 key
+    h = mul32(key[:, 0], _P1) ^ mul32(key[:, 1], _P2) ^ mul32(key[:, 2], _P3)
+    h = torch.where(mask, h, torch.full_like(h, MASK32))
+
+    order = torch.argsort(h, stable=True)
+    h_s = h[order]
+    pts_s = pts[order]
+    aux_s = aux[order]
+    ones = mask[order].to(pts.dtype)
+
+    start = torch.ones_like(h_s, dtype=torch.bool)
+    start[1:] = h_s[1:] != h_s[:-1]
+    seg_id = torch.cumsum(start.to(torch.int64), 0) - 1
+    seg = torch.clamp(seg_id, max=out_cap)  # segments past out_cap -> dump
+    lengths = torch.bincount(seg, minlength=out_cap + 1)
+
+    def seg_sum(x):
+        return torch.segment_reduce(
+            x, "sum", lengths=lengths, axis=0, unsafe=True, initial=0
+        )[:out_cap]
+
+    cnt = seg_sum(ones)
+    sum_xyz = seg_sum(pts_s * ones[:, None])
+    sum_aux = seg_sum(aux_s * ones[:, None])
+    valid = cnt > 0
+    denom = torch.clamp(cnt, min=1.0)
+    return sum_xyz / denom[:, None], sum_aux / denom[:, None], valid
