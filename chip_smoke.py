@@ -1,18 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of malio_tpu_torch on one NVIDIA card.
 
-Builds the CUDA kernels from malio_tpu_torch/csrc/, holds each kernel
-against its plain PyTorch version at the shapes of the main path, then
-drives the City 3-LiDAR flagship through runner.run_sequence with both
-kernels on, checks the trajectory against the synthetic ground truth,
-re-runs the first rounds with the plain versions, and traces a few steady
-rounds with torch.profiler to show where a round's time goes. Any failure
-exits non-zero; the last line is the device summary.
+Builds the CUDA kernels from malio_tpu_torch/csrc/, drives the City 3-LiDAR
+flagship through runner.run_sequence with both kernels on (launch counters
+set to 0 just before and read just after), checks the trajectory against
+the synthetic ground truth, then holds each kernel against its plain
+PyTorch version on the card at the main path's shapes: the fused k-NN
+window kernel on the map that run built and on one of its rounds' queries
+(bit-equal, also with ties, exhausted rows, all-invalid windows, masked
+queries and duplicate rows planted), the deskew kernel within atol 2e-5.
+Each kernel is timed on the device alone (the CUPTI kernel events of
+torch.profiler, median of >= 30 launches) and per wrapper call (CUDA
+events around 100 back-to-back calls). It times the whole k-NN stage
+(`voxel_hash.knn_cached`), re-runs the first rounds with the plain
+versions, and traces a few steady rounds with torch.profiler to show where
+a round's time goes. Any failure exits non-zero; the last line is the
+device summary.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                               # the smoke run
+    python3 chip_smoke.py --save-stage-inputs FILE      # ... keeping the map and queries
+    python3 chip_smoke.py --knn-stage TREE --inputs FILE  # time knn_cached of the
+                                                        # package in TREE on them
+    python3 chip_smoke.py --trace-check SECONDS [--lead-in S]  # count profiler
+                                                        # traces that lose device events
 
 Writes per-round and build details to chiprun_out/chip_smoke.json.
 """
+import argparse
 import json
 import pathlib
 import statistics
@@ -28,102 +42,250 @@ F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 ATE_GATE_M = 0.05
 PLAIN_ROUNDS = 20
 PLAIN_TOL_M = 0.01
+ROW_BYTES = 32 * 5 * 4  # one hash-table row: 32 slots of [fp, x, y, z, cov] f32
 # f32 operations per point of csrc/deskew.cu, counted from its source:
 # inside the spline window 3 SE(3) exps (~80 each), 3 pose compositions
 # (~60 each), 2 quaternion-to-matrix conversions (~25 each), 4 frame maps
 # (~15 each) and the basis weights; outside it only the interval test
 DESKEW_OPS_PER_POINT = 560
 DESKEW_OPS_OUTSIDE = 10
+# f32 operations per live lane of csrc/knn_window.cu: 3 sub, 3 mul, 2 add
+KNN_OPS_PER_LANE = 8
+TRACE_LEAD_IN_S = 0.02  # host time between a profiler session's start and its first call
+TRACE_ATTEMPTS = 5
+TRACES = []  # one entry per profiler trace of device_events: calls, events, markers found
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, reps=30, warm=3):
-    """Median time of one call by CUDA events."""
+def call_ms(fn, n=100, warm=3):
+    """Time of one wrapper call, host work included: CUDA events around n
+    back-to-back calls, divided by n."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
         fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return statistics.median(ts)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
-def knn_inputs(Q, C, seed):
-    """A candidate window with mixed validity, exact distance ties, sparse
-    rows and all-invalid rows, masked exactly as the path masks it."""
-    import numpy as np
+def _trace(fn, n, warm):
+    """Device activities of one torch.profiler session, in start order:
+    warm-up calls, then n calls with a marker kernel before each and
+    after the last."""
     import torch
-    from malio_tpu_torch.map import voxel_hash as vh
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(seed)
-    qs = rng.uniform(-5, 5, size=(Q, 3)).astype(np.float32)
-    pts = rng.uniform(-6, 6, size=(Q, C, 3)).astype(np.float32)
-    valid = rng.uniform(size=(Q, C)) < 0.7
-    valid[::97] = False  # all-invalid rows
-    valid[5::89, 10:] = False  # fewer valid lanes than K
-    pts[2::31, 20] = pts[2::31, 4]  # exact duplicates: distance ties
-    pts[3::37, 1::2] = pts[3::37, 0:1]  # many-way ties
-    covs = rng.uniform(0.01, 0.5, size=(Q, C)).astype(np.float32)
-    q = torch.as_tensor(qs).cuda()
-    p = torch.as_tensor(pts).cuda()
-    c = torch.as_tensor(covs).cuda()
-    v = torch.as_tensor(valid).cuda()
-    big = torch.finfo(torch.float32).max
-    d2 = vh._sqdist(p, q[:, None, :])
-    d2 = torch.where(v, d2, torch.full_like(d2, big)).contiguous()
-    c = torch.where(v, c, torch.zeros_like(c)).contiguous()
-    return d2, p.contiguous(), c
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_LEAD_IN_S)
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(n):
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
 
 
-def knn_phase(shapes, K):
+def device_events(fn, n, warm=3):
+    """For each of n calls of fn, the (name, microseconds) of its device
+    activities (kernels, copies, memsets) from torch.profiler's CUPTI
+    trace: those between two marker kernels, on the one stream the calls
+    use.
+
+    Now and then a session places its device events a few ms before
+    their host launches and drops those that then fall before the trace
+    start, up to all of them (`--trace-check` counts how often). The
+    lead-in keeps the calls away from the start, and a trace is taken
+    again, up to TRACE_ATTEMPTS times, unless it holds all n + 1 markers
+    and the same number of activities in every call; each retake is
+    logged and counted."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        ev = _trace(fn, n, warm)
+        marks = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
+        calls = [[(e.name, e.time_range.elapsed_us()) for e in ev[a + 1 : b]]
+                 for a, b in zip(marks, marks[1:])]
+        sizes = sorted({len(c) for c in calls})
+        ok = len(marks) == n + 1 and len(sizes) == 1
+        TRACES.append(dict(calls=n, device_events=len(ev), markers=len(marks),
+                           events_per_call=sizes, ok=ok))
+        if ok:
+            return calls
+        log(f"torch.profiler trace {attempt} of {TRACE_ATTEMPTS} lost device events "
+            f"({len(ev)} recorded, {len(marks)} of {n + 1} markers, {sizes} per call); "
+            f"taking it again")
+    raise AssertionError(f"torch.profiler lost device events in {TRACE_ATTEMPTS} traces in a row")
+
+
+def kernel_ms(fn, name, n=50):
+    """The device duration of one launch of the kernel whose name holds
+    `name`: median over n calls of fn, each of which launches it once."""
+    ds = [us for call in device_events(fn, n) for nm, us in call if name in nm]
+    if len(ds) != n:
+        raise AssertionError(f"{name}: {len(ds)} device events for {n} calls")
+    return statistics.median(ds) / 1e3
+
+
+def device_ms(fn, n=10):
+    """Device time of one call of fn (the sum of its kernels' and copies'
+    durations, mean over n calls) and its device activities per call."""
+    calls = device_events(fn, n)
+    return sum(us for c in calls for _, us in c) / n / 1e3, len(calls[0])
+
+
+def bound(nbytes, nops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def launch_floor_ms():
+    """Device duration of the smallest kernel: a one-element add."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    return kernel_ms(lambda: x.add_(1.0), "elementwise", n=50)
+
+
+def edge_windows(tab, qs, rows, alive):
+    """The path's inputs with the selection's edge cases planted: twin
+    points (distance ties) in every third row, queries on stored points,
+    all-invalid windows, masked-off queries (row 0, nothing alive),
+    windows with fewer valid lanes than K where lane 0 is valid, invalid
+    or dead, and duplicate rows left alive (every point ties its twin)."""
+    tab, qs, rows, alive = tab.clone(), qs.clone(), rows.clone(), alive.clone()
+    V = rows.shape[1]
+    occ = tab[..., 0] != 0
+    twin = occ[:, 2] & occ[:, 7]
+    twin[1::3] = False
+    twin[2::3] = False
+    tab[twin, 7, 1:4] = tab[twin, 2, 1:4]
+    ra, rb = 11, 12  # two sparse rows: slot 0 occupied / empty
+    tab[ra, :, 0] = 0
+    tab[ra, [0, 3, 9], 0] = 1.0
+    tab[ra, [0, 3, 9], 4] = 0.05
+    tab[rb, :, 0] = 0
+    tab[rb, [4, 11], 0] = 1.0
+    tab[rb, [4, 11], 4] = 0.07
+    alive[::97] = False
+    rows[1::89] = 0
+    alive[1::89] = False
+    rows[2::61, 0] = ra
+    alive[2::61, 1:] = False
+    rows[3::67, 0] = rb
+    alive[3::67, 1:] = False
+    alive[4::71, 0] = False
+    if V > 2:
+        rows[5::53, 1] = rows[5::53, 0]
+        alive[5::53, :2] = True
+    qs[6::59] = tab[rows[6::59, 0], 2, 1:4]
+    return tab, qs, rows, alive
+
+
+def check_window(name, args, K):
+    """The fused kernel against knn_window_plain on the same inputs, bit
+    for bit. Returns the largest |difference| (0) and what the case
+    exercised."""
     import torch
     from malio_tpu_torch.ops import knn
 
-    rows = []
-    for name, Q, C in shapes:
-        d2, p, c = knn_inputs(Q, C, seed=C)
-        got = knn.topk_candidates(d2, p, c, K)
-        want = knn.topk_candidates_plain(d2, p, c, K)
-        torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("pts", "covs", "d2")):
-            if not torch.equal(g, w):
-                bad = (g != w).sum().item()
-                raise AssertionError(f"{name}: kernel {what} differs from plain at {bad} entries")
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        ms = time_ms(lambda: knn.topk_candidates(d2, p, c, K))
-        plain_ms = time_ms(lambda: knn.topk_candidates_plain(d2, p, c, K), reps=20)
+    got = knn.knn_window(*args, K)
+    want = knn.knn_window_plain(*args, K)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("pts", "covs", "d2")):
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"{name}: kernel {what} differs from plain at {bad} entries")
+    d2 = want[2]
+    big = torch.finfo(d2.dtype).max
+    live = d2 < big
+    stats = dict(
+        exhausted_slots=int((~live).sum()), empty_windows=int((~live[:, 0]).sum()),
+        ties=int(((d2[:, 1:] == d2[:, :-1]) & live[:, 1:]).sum()),
+    )
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return err, stats
+
+
+def knn_phase(m, queries, qmask, cfg, K):
+    """The fused k-NN window kernel at the path's shapes, on the map the
+    main path built and one of its rounds' queries: the base window over
+    every measurement lane, and the wide window over the first live
+    queries at the path's tier (256) and at the full budget."""
+    import torch
+    from malio_tpu_torch.map import voxel_hash as vh
+    from malio_tpu_torch.ops import knn
+
+    live = queries[qmask].contiguous()
+    shapes = [
+        ("knn_window", queries, cfg.knn_radius, qmask),
+        ("knn_window_wide", live[:256], cfg.knn_wide_radius, None),
+        ("knn_window_wide_budget", live[: cfg.knn_wide_budget], cfg.knn_wide_radius, None),
+    ]
+    big = torch.finfo(torch.float32).max
+    rows_out = []
+    for name, q, radius, mask in shapes:
+        q = q.contiguous()
+        b, alive = vh._window_rows(m, q, radius, mask)
+        args = (m.tab, q, b, alive)
+        Q, V = b.shape
+        err, stats = check_window(name, args, K)
+        err_e, stats_e = check_window(name + " (edge cases)", edge_windows(*args), K)
+        for key in ("exhausted_slots", "empty_windows", "ties"):
+            if stats_e[key] == 0:
+                raise AssertionError(f"{name}: the edge inputs exercised no {key}")
+        ms = kernel_ms(lambda: knn.knn_window(*args, K), "knn_window_")
+        c_ms = call_ms(lambda: knn.knn_window(*args, K))
+        p_ms, p_ops = device_ms(lambda: knn.knn_window_plain(*args, K))
+        p_call = call_ms(lambda: knn.knn_window_plain(*args, K), n=10)
+
+        # library yardstick: torch.topk + gather on the precomputed masked d2
+        win = m.tab[b]
+        occ = ((win[..., 0] != 0) & alive[..., None]).reshape(Q, V * 32)
+        cpts = win[..., 1:4].reshape(Q, V * 32, 3).contiguous()
+        ccov = torch.where(occ, win[..., 4].reshape(Q, V * 32), 0.0)
+        d2 = torch.where(occ, vh._sqdist(cpts, q[:, None, :]), big)
+        del win
 
         def library():
             v, i = torch.topk(d2, K, dim=-1, largest=False, sorted=True)
-            return (torch.gather(p, 1, i[..., None].expand(Q, K, 3)), torch.gather(c, 1, i), v)
+            return torch.gather(cpts, 1, i[..., None].expand(Q, K, 3)), torch.gather(ccov, 1, i), v
 
-        lib_ms = time_ms(library)
-        nbytes = Q * C * 20 + Q * K * 20
-        nops = Q * C * K
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_OPS_PER_S * 1e3
-        rows.append(dict(
-            name=name, route="cuda", source="malio_tpu_torch/csrc/knn_select.cu",
-            replaces="malio_tpu/ops/knn_pallas.py:88", shape=f"Q={Q} C={C} K={K}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib_ms,
+        l_ms, _ = device_ms(library)
+        l_call = call_ms(library, n=30)
+        del d2, cpts, ccov
+        touched = int(torch.unique(torch.cat([b[alive], b[:, 0]])).numel())
+        n_lanes = int((m.tab[..., 0] != 0).sum(1)[b][alive].sum())
+        nbytes = touched * ROW_BYTES + Q * 12 + Q * V * 9 + Q * K * 20
+        b_ms, b_by = bound(nbytes, n_lanes * KNN_OPS_PER_LANE)
+        rows_out.append(dict(
+            name=name, route="cuda", source="malio_tpu_torch/csrc/knn_window.cu",
+            replaces="malio_tpu/ops/knn_pallas.py:88", shape=f"Q={Q} V={V} K={K}", Q=Q, V=V,
+            max_abs_err=max(err, err_e), ms=ms, call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call,
+            plain_device_ops=p_ops, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            touched_rows=touched, live_lanes=n_lanes, library_ms=l_ms, library_call_ms=l_call,
+            cases=stats, edge_cases=stats_e,
         ))
-        log(f"kernel {name} Q={Q} C={C} K={K}: bit-equal to plain; {ms:.4f} ms "
-            f"(plain {plain_ms:.4f} ms, torch.topk+gather {lib_ms:.4f} ms, "
-            f"bound {max(t_bytes, t_ops):.4f} ms by {'bytes' if t_bytes >= t_ops else 'operations'})")
-    return rows
+        log(f"kernel {name} Q={Q} V={V} K={K}: bit-equal to plain (path inputs {stats}, "
+            f"edge inputs {stats_e}); device {ms:.4f} ms, call {c_ms:.4f} ms (plain device "
+            f"{p_ms:.4f} ms in {p_ops:.0f} device ops, call {p_call:.4f} ms; torch.topk+gather "
+            f"device {l_ms:.4f} ms, call {l_call:.4f} ms); bound {b_ms:.5f} ms by {b_by} "
+            f"({touched} distinct rows, {nbytes} B)")
+    return rows_out
 
 
 def deskew_inputs(L, N, C, seed):
@@ -160,23 +322,98 @@ def deskew_phase(L, N, C):
     err = float((got[..., :3] - want[..., :3]).abs().max())
     if not err <= 2e-5:
         raise AssertionError(f"deskew: max |kernel - plain| = {err} > 2e-5")
-    ms = time_ms(lambda: deskew.deskew_points(*args))
-    plain_ms = time_ms(lambda: deskew.deskew_points_plain(*args), reps=20)
+    ms = kernel_ms(lambda: deskew.deskew_points(*args), "deskew_kernel")
+    c_ms = call_ms(lambda: deskew.deskew_points(*args))
+    p_ms, p_ops = device_ms(lambda: deskew.deskew_points_plain(*args))
+    p_call = call_ms(lambda: deskew.deskew_points_plain(*args), n=10)
     n_ok = int(want[..., 3].sum())
     nbytes = L * N * 32 + C * (16 + 6) * 4 + L * 14 * 4  # points in+out, spline, frames
     nops = n_ok * DESKEW_OPS_PER_POINT + (L * N - n_ok) * DESKEW_OPS_OUTSIDE
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    b_ms, b_by = bound(nbytes, nops)
     log(f"kernel deskew L={L} N={N} C={C}: max |kernel - plain| {err:.3g} (atol 2e-5), "
-        f"ok flags equal ({n_ok}/{L * N} inside); {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-        f"bound {max(t_bytes, t_ops):.6f} ms)")
+        f"ok flags equal ({n_ok}/{L * N} inside); device {ms:.4f} ms, call {c_ms:.4f} ms "
+        f"(plain device {p_ms:.4f} ms in {p_ops:.0f} device ops, call {p_call:.4f} ms); "
+        f"bound {b_ms:.6f} ms by {b_by}")
     return dict(
         name="deskew", route="cuda", source="malio_tpu_torch/csrc/deskew.cu",
         replaces="malio_tpu/ops/deskew_pallas.py:197", shape=f"L={L} N={N} C={C}",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None,
+        max_abs_err=err, ms=ms, call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call,
+        plain_device_ops=p_ops, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops,
+        library_ms=None, library_call_ms=None,
     )
+
+
+def stage_ms(vh, meas, m, queries, qmask, cfg, use_kernel):
+    """The whole k-NN stage, `knn_cached` as make_h_share calls it, on the
+    card: CUDA events around 20 calls (host work and the escalation
+    tier's host read included), the device time of one call, and its
+    device activities per call."""
+    kw = dict(radius=cfg.knn_radius, wide_radius=cfg.knn_wide_radius,
+              wide_budget=cfg.knn_wide_budget, qmask=qmask, accept_d2=meas.NN_REJECT_D2,
+              accept_k=meas.NUM_MATCH, cache_k=meas.CAND_K, use_kernel=use_kernel)
+    fn = lambda: vh.knn_cached(m, queries, **kw)
+    dev_ms, ops = device_ms(fn, n=10)
+    return dict(stage_ms=call_ms(fn, n=20), stage_device_ms=dev_ms, stage_device_ops=ops)
+
+
+def knn_stage_main(tree, inputs):
+    """Time knn_cached of the package in `tree` on saved inputs (the map
+    and one round's queries of a flagship run), so two trees can be
+    compared on one card, one after the other."""
+    sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import torch
+    from malio_tpu_torch import measurement as meas
+    from malio_tpu_torch.config import flagship_config
+    from malio_tpu_torch.map import voxel_hash as vh
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    d = torch.load(inputs, map_location="cuda")
+    m = vh.VoxelHashMap(tab=d["tab"], voxel_size=d["voxel_size"], n_dropped=d["n_dropped"],
+                        n_evicted=d["n_evicted"])
+    out = stage_ms(vh, meas, m, d["queries"], d["qmask"], flagship_config(), use_kernel=True)
+    out["tree"] = str(tree)
+    out["package"] = str(pathlib.Path(vh.__file__).resolve().parent.parent)
+    print(json.dumps(out))
+    return 0
+
+
+def trace_check_main(seconds, lead_in_s):
+    """How often a profiler trace of device_events loses device events:
+    the kernel phase's timings (launch floor, fused kernel, plain version,
+    torch.topk) in a loop for `seconds` on seeded random inputs at the
+    base window's shape (65,536 table rows half full, Q=9984, V=8), with
+    `lead_in_s` of host time before each trace's first call."""
+    global TRACE_LEAD_IN_S
+    import torch
+    from malio_tpu_torch.ops import _build, knn
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    TRACE_LEAD_IN_S = lead_in_s
+    _build.build_all(["knn_window"])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    R, Q, V, K = 65536, 9984, 8, 16
+    tab = torch.zeros(R, 32, 5, device="cuda")
+    tab[..., 0] = (torch.rand(R, 32, device="cuda", generator=g) < 0.5).float()
+    tab[..., 1:4] = torch.rand(R, 32, 3, device="cuda", generator=g) * 10
+    tab[..., 4] = 0.01
+    args = (tab, torch.rand(Q, 3, device="cuda", generator=g) * 10,
+            torch.randint(0, R, (Q, V), device="cuda", generator=g),
+            torch.rand(Q, V, device="cuda", generator=g) < 0.9)
+    d2 = torch.rand(Q, V * 32, device="cuda", generator=g)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        launch_floor_ms()
+        kernel_ms(lambda: knn.knn_window(*args, K), "knn_window_")
+        device_ms(lambda: knn.knn_window_plain(*args, K))
+        device_ms(lambda: torch.topk(d2, K, dim=-1, largest=False, sorted=True))
+    lost = [t for t in TRACES if not t["ok"]]
+    print(json.dumps(dict(lead_in_s=lead_in_s, seconds=time.perf_counter() - t0,
+                          traces=len(TRACES), lost=len(lost), lost_traces=lost)))
+    return 0
 
 
 def profile_phase(cfg, groups, n_init, round_ms, skip=8, active=5):
@@ -214,15 +451,17 @@ def profile_phase(cfg, groups, n_init, round_ms, skip=8, active=5):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / active
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     launches = sum(1 for e in events if e.name == "cudaLaunchKernel") / active
+    knn_ms = sum(ms for name, ms in by_name.items() if "knn_window_" in name)
     out = dict(rounds=active, round_ms=round_ms, traced_round_ms=traced_ms,
                device_busy_ms_per_round=busy_ms if dev else None,
                device_idle_share=1.0 - busy_ms / round_ms if dev else None,
                launches_per_round=launches, device_ops_per_round=len(dev) / active,
-               top_device_ms_per_round=top)
+               knn_window_ms_per_round=knn_ms, top_device_ms_per_round=top)
     if dev:
         log(f"profile, {active} steady rounds: device busy {busy_ms:.2f} ms/round of a "
             f"{round_ms:.1f} ms round (idle share {out['device_idle_share']:.3f}; "
-            f"{traced_ms:.1f} ms/round while traced), {launches:.0f} kernel launches/round")
+            f"{traced_ms:.1f} ms/round while traced), {launches:.0f} kernel launches/round; "
+            f"fused k-NN kernel {knn_ms:.4f} ms/round")
     else:
         log("profile: torch.profiler recorded no device time; device busy share not measured")
     for name, ms in top:
@@ -246,7 +485,22 @@ def flagship_groups(cfg, duration, seed):
     return assemble_groups(cfg, imu, rounds), traj
 
 
-def main():
+def sum_order_check():
+    """Entries where PyTorch's (d*d).sum(-1) over x, y, z differs on the
+    card from the explicit ((dx*dx + dy*dy) + dz*dz) of the port's
+    sqdist (the JAX reference's op-by-op order), over 2e6 random pairs."""
+    import torch
+    from malio_tpu_torch.ops import knn
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = (torch.rand(2_000_000, 3, device="cuda", generator=g) * 12 - 6) * (
+        torch.rand(2_000_000, 1, device="cuda", generator=g) * 30)
+    q = torch.rand(1, 3, device="cuda", generator=g) * 10 - 5
+    d = p - q
+    return int(((d * d).sum(-1) != knn.sqdist(p, q)).sum()), p.shape[0]
+
+
+def main(save_stage_inputs=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -254,9 +508,11 @@ def main():
         return 2
     import numpy as np
     import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
+    from malio_tpu_torch import measurement as meas
     from malio_tpu_torch import runner
     from malio_tpu_torch.config import flagship_config
     from malio_tpu_torch.eval.ate import ate_rmse
+    from malio_tpu_torch.map import voxel_hash as vh
     from malio_tpu_torch.ops import _build, deskew, knn
 
     smi = subprocess.run(
@@ -270,22 +526,23 @@ def main():
     report = dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.build_all(["knn_select", "deskew"])
+    names = ["knn_window", "deskew"]
+    _build.build_all(names)
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s (parallel nvcc, sm_90a)")
     report["build_s"] = build_s
-    report["ptxas"] = {n: _build.ptxas_report(n) for n in ("knn_select", "deskew")}
-
-    # ---- kernel phase, at the main path's shapes ----
-    cfg = flagship_config()
-    K = 16
-    knn_rows = knn_phase(
-        [("knn_select", cfg.max_meas_points, 8 * 32), ("knn_select_wide", cfg.knn_wide_budget, 208 * 32)],
-        K,
-    )
-    desk_row = deskew_phase(cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity)
+    report["ptxas"] = {n: _build.ptxas_report(n) for n in names}
+    floor = launch_floor_ms()
+    n_diff, n_pairs = sum_order_check()
+    report.update(launch_floor_ms=floor, sum_order_differs=[n_diff, n_pairs])
+    log(f"launch floor (one-element add, device) {floor:.4f} ms; (d*d).sum(-1) differs from "
+        f"the explicit x, y, z order at {n_diff} of {n_pairs} entries on this card")
 
     # ---- main path: City 3-LiDAR flagship, both kernels on ----
+    cfg = flagship_config()
+    K = meas.CAND_K
+    v_base = len(vh._svx_ball_offsets(cfg.knn_radius))
+    v_wide = len(vh._svx_ball_offsets(cfg.knn_wide_radius))
     t0 = time.perf_counter()
     groups, traj = flagship_groups(cfg, duration=8.0, seed=0)
     log(f"flagship world + {len(groups)} measure groups generated in {time.perf_counter() - t0:.1f} s")
@@ -295,32 +552,67 @@ def main():
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
-    knn.topk_candidates.launches = 0
-    knn.topk_candidates.launches_by_width = {}
+    # keep the last round's k-NN queries for the kernel and stage phases
+    last_search = {}
+    knn_cached = vh.knn_cached
+
+    def recording_knn_cached(m, queries, **kw):
+        last_search.update(queries=queries, qmask=kw.get("qmask"))
+        return knn_cached(m, queries, **kw)
+
+    vh.knn_cached = recording_knn_cached
+    knn.knn_window.launches = 0
+    knn.knn_window.launches_by_shape = {}
     deskew.deskew_points.launches = 0
     t0 = time.perf_counter()
-    res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda", callback=tick)
-    torch.cuda.synchronize()
+    try:
+        res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda", callback=tick)
+        torch.cuda.synchronize()
+    finally:
+        vh.knn_cached = knn_cached
     wall = time.perf_counter() - t0
-    n_knn = knn.topk_candidates.launches
-    by_width = dict(knn.topk_candidates.launches_by_width)
+    by_shape = dict(knn.knn_window.launches_by_shape)
+    n_base = sum(n for (q, v), n in by_shape.items() if v == v_base)
+    n_wide = sum(n for (q, v), n in by_shape.items() if v == v_wide)
     n_desk = deskew.deskew_points.launches
     rounds = len(res["t"])
-    if n_knn == 0 or n_desk == 0:
-        raise AssertionError(f"main path skipped a kernel: knn {n_knn}, deskew {n_desk} launches")
+    if n_base == 0 or n_wide == 0 or n_desk == 0:
+        raise AssertionError(f"main path skipped a kernel: knn_window {by_shape}, deskew {n_desk}")
     warm = 8
     steady = (rounds - warm) / (stamps[-1] - stamps[warm - 1])
     ate = ate_rmse(res["pos"], traj.pos(res["t"]))
     miss_p50 = float(np.median(res["nn_miss"]))
     log(f"main path: {rounds} rounds in {wall:.2f} s; steady {steady:.2f} scans/s "
         f"(rounds {warm}+), {smi}")
-    log(f"ATE {ate:.4f} m (gate {ATE_GATE_M}), map_dropped {int(res['map_dropped'][-1])}, "
+    log(f"ATE {ate:.6f} m (gate {ATE_GATE_M}), map_dropped {int(res['map_dropped'][-1])}, "
         f"meas_dropped max {int(res['n_meas_dropped'].max())}, nn_miss p50 {miss_p50}, "
-        f"map_size {int(res['map_size'][-1])}, launches knn {n_knn} {by_width} deskew {n_desk}")
+        f"map_size {int(res['map_size'][-1])}, launches knn_window {by_shape} "
+        f"(Q, V): n, deskew {n_desk}")
     if not (np.isfinite(ate) and ate <= ATE_GATE_M):
         raise AssertionError(f"ATE {ate} is not finite or exceeds {ATE_GATE_M} m")
     if not np.all(np.isfinite(res["pos"])) or res["pos"].shape != (rounds, 3):
         raise AssertionError("trajectory has non-finite values or a wrong shape")
+
+    # ---- kernels against their plain versions, timed, at the path's shapes ----
+    m = res["carry"].map
+    queries, qmask = last_search["queries"], last_search["qmask"]
+    knn_rows = knn_phase(m, queries, qmask, cfg, K)
+    knn_rows[0]["launches"] = n_base
+    knn_rows[1]["launches"] = by_shape.get((256, v_wide), 0)
+    knn_rows[2]["launches"] = by_shape.get((cfg.knn_wide_budget, v_wide), 0)
+    desk_row = deskew_phase(cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity)
+    desk_row["launches"] = n_desk
+
+    # ---- the whole k-NN stage, kernel and plain ----
+    stage = {flag: stage_ms(vh, meas, m, queries, qmask, cfg, flag) for flag in (True, False)}
+    report["knn_stage"] = {"kernel": stage[True], "plain": stage[False]}
+    for flag, st in stage.items():
+        log(f"k-NN stage (knn_cached, Q={queries.shape[0]}, {'kernel' if flag else 'plain'}): "
+            f"{st['stage_ms']:.4f} ms per call by events, device {st['stage_device_ms']:.4f} ms "
+            f"in {st['stage_device_ops']:.0f} device ops")
+    if save_stage_inputs:
+        torch.save(dict(tab=m.tab, voxel_size=m.voxel_size, n_dropped=m.n_dropped,
+                        n_evicted=m.n_evicted, queries=queries, qmask=qmask), save_stage_inputs)
 
     # ---- the same rounds through the plain versions on the card ----
     import dataclasses
@@ -339,20 +631,22 @@ def main():
     # ---- where a steady round's time goes ----
     report["profile"] = profile_phase(cfg, groups, n_init, round_ms=1e3 / steady)
 
-    knn_rows[0]["launches"] = by_width.get(8 * 32, 0)
-    knn_rows[1]["launches"] = n_knn - knn_rows[0]["launches"]
-    desk_row["launches"] = n_desk
     kernels = knn_rows + [desk_row]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in kernels:
+        r["floor_ms"] = floor
+    keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
+            "call_ms", "plain_ms", "plain_call_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call_ms")
     report.update(
         kernels=kernels, rounds=rounds, wall_s=wall, steady_scans_per_s=steady, ate_m=ate,
         map_dropped=res["map_dropped"].tolist(), nn_miss=res["nn_miss"].tolist(),
         meas_dropped=res["n_meas_dropped"].tolist(), iterations=res["iterations"].tolist(),
         map_size=res["map_size"].tolist(), round_s=np.diff(stamps).tolist(),
-        plain_max_dpos_m=dpos,
+        plain_max_dpos_m=dpos, knn_launches_by_shape={f"{q},{v}": n for (q, v), n in by_shape.items()},
+        traces=len(TRACES), trace_retakes=[t for t in TRACES if not t["ok"]],
     )
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log(smi)
     print(json.dumps({"kernels": [{k2: r[k2] for k2 in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -360,4 +654,19 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--save-stage-inputs", metavar="FILE",
+                    help="keep the map and the last round's k-NN queries in FILE")
+    ap.add_argument("--knn-stage", metavar="TREE",
+                    help="only time knn_cached of the package in TREE on --inputs")
+    ap.add_argument("--inputs", metavar="FILE", help="inputs saved by --save-stage-inputs")
+    ap.add_argument("--trace-check", metavar="SECONDS", type=float,
+                    help="only count profiler traces that lose device events, for SECONDS")
+    ap.add_argument("--lead-in", metavar="S", type=float, default=TRACE_LEAD_IN_S,
+                    help="host seconds before a trace's first call (with --trace-check)")
+    a = ap.parse_args()
+    if a.knn_stage:
+        sys.exit(knn_stage_main(a.knn_stage, a.inputs))
+    if a.trace_check:
+        sys.exit(trace_check_main(a.trace_check, a.lead_in))
+    sys.exit(main(a.save_stage_inputs))

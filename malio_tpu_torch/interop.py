@@ -5,6 +5,8 @@ VoxelHashMap) travel as nested dicts of numpy arrays keyed by field name;
 these functions turn such dicts into the port's NamedTuples of tensors and
 back, so both packages can step from the same carry. Dtypes are kept as
 given. The port never sees a JAX object: the caller flattens that side.
+Like the package's entry points, they put the tensors on the card unless
+the caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ def _t(a, device):
 
 
 def _build(cls, d, device, nested=None):
+    device = pipeline.resolve_device(device)
     nested = nested or {}
     kw = {}
     for f in cls._fields:
@@ -32,19 +35,19 @@ def _build(cls, d, device, nested=None):
     return cls(**kw)
 
 
-def state_from_numpy(d, device="cpu") -> st.State:
+def state_from_numpy(d, device="cuda") -> st.State:
     return _build(st.State, d, device)
 
 
-def group_from_numpy(d, device="cpu") -> prop.MeasureGroup:
+def group_from_numpy(d, device="cuda") -> prop.MeasureGroup:
     return _build(prop.MeasureGroup, d, device)
 
 
-def map_from_numpy(d, device="cpu") -> vh.VoxelHashMap:
+def map_from_numpy(d, device="cuda") -> vh.VoxelHashMap:
     return _build(vh.VoxelHashMap, d, device)
 
 
-def carry_from_numpy(d, device="cpu") -> pipeline.LioCarry:
+def carry_from_numpy(d, device="cuda") -> pipeline.LioCarry:
     return _build(
         pipeline.LioCarry, d, device,
         nested={"x": st.State, "hist": prop.History, "map": vh.VoxelHashMap},

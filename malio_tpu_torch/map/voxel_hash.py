@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops import knn as knn_ops
-from ..ops.knn import topk_min  # noqa: F401  (the map's k-smallest selection)
+from ..ops.knn import sqdist as _sqdist, topk_extract as _topk_extract, topk_min  # noqa: F401
 from ..preprocess import MASK32, mul32
 
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
@@ -235,12 +235,6 @@ def _offsets(radius: int, device):
     return torch.as_tensor(_svx_ball_offsets(radius), dtype=torch.int64, device=device)
 
 
-def _sqdist(pts, q):
-    """Squared distances, summed x, y, z in that order."""
-    d = pts - q
-    return (d * d).sum(-1)
-
-
 def _dup_rows(b_all):
     """Offset j is dead if an earlier offset hashed to the same row."""
     Q, V = b_all.shape
@@ -251,18 +245,20 @@ def _dup_rows(b_all):
     return torch.any(eq & tri[None], dim=-1)
 
 
-def _topk_extract(queries, cand_pts, cand_covs, cand_valid, k: int, use_kernel: bool):
-    """Top-k nearest candidates with their values. The masked d2 is
-    computed once here and shared by both selection paths, so kernel and
-    plain outputs are bit-equal."""
-    dtype = cand_covs.dtype
-    big = torch.finfo(dtype).max
-    d2 = _sqdist(cand_pts, queries[:, None, :])
-    d2 = torch.where(cand_valid, d2, torch.full_like(d2, big))
-    cand_covs = torch.where(cand_valid, cand_covs, torch.zeros_like(cand_covs))
-    if use_kernel:
-        return knn_ops.topk_candidates(d2, cand_pts.contiguous(), cand_covs, k)
-    return knn_ops.topk_candidates_plain(d2, cand_pts, cand_covs, k)
+def _window_rows(m: VoxelHashMap, queries, radius: int, qmask=None):
+    """The window of each query: its supervoxel rows (Q, V) over the
+    ball-pruned offsets of `radius`, and which of them are alive (not a
+    repeat of an earlier offset's row, and the query not masked off).
+    Masked queries fetch row 0."""
+    offs = _offsets(radius, m.tab.device)
+    anchors = _svx(voxel_key(m, queries) - radius)
+    b_all = _hash(anchors[:, None, :] + offs[None], m.tab.shape[0])  # (Q, V)
+    if qmask is not None:
+        b_all = torch.where(qmask[:, None], b_all, torch.zeros_like(b_all))
+    alive = ~_dup_rows(b_all)
+    if qmask is not None:
+        alive = alive & qmask[:, None]
+    return b_all, alive
 
 
 def _take(x, idx):
@@ -274,29 +270,19 @@ def _take(x, idx):
 
 def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool = False):
     """k nearest stored points over the supervoxel window of `radius`. The
-    kernel path gathers the whole window once; the plain path streams it
-    in chunks of _WINDOW_CHUNK rows with a running top-k merge."""
+    kernel path hands the whole window to the fused window kernel; the
+    plain path streams it in chunks of _WINDOW_CHUNK rows with a running
+    top-k merge."""
     dtype = m.tab.dtype
-    queries = queries.to(dtype)
+    queries = queries.to(dtype).contiguous()
     dev = m.tab.device
-    offs = _offsets(radius, dev)
-    V = offs.shape[0]
-    R = m.tab.shape[0]
     Q = queries.shape[0]
     big = torch.finfo(dtype).max
-
-    anchors = _svx(voxel_key(m, queries) - radius)
-    b_all = _hash(anchors[:, None, :] + offs[None], R)  # (Q, V)
-    alive = ~_dup_rows(b_all)
+    b_all, alive = _window_rows(m, queries, radius)
+    V = b_all.shape[1]
 
     if use_kernel:
-        rows = m.tab[b_all]  # (Q, V, SLOTS, 5)
-        occ = (rows[..., 0] != 0) & alive[..., None]
-        nn_pts, nn_covs, nn_d2 = _topk_extract(
-            queries, rows[..., 1:4].reshape(Q, V * SLOTS, 3),
-            rows[..., 4].reshape(Q, V * SLOTS), occ.reshape(Q, V * SLOTS), k,
-            use_kernel=True,
-        )
+        nn_pts, nn_covs, nn_d2 = knn_ops.knn_window(m.tab, queries, b_all, alive, k)
         return nn_pts, nn_covs, nn_d2, torch.sum(nn_d2 < big, dim=-1)
 
     def chunk_candidates(b_c, alive_c):
@@ -360,28 +346,12 @@ def knn_cached(
     assert cache_k >= accept_k, (cache_k, accept_k)
     dtype = m.tab.dtype
     dev = m.tab.device
-    queries = queries.to(dtype)
+    queries = queries.to(dtype).contiguous()
     Q = queries.shape[0]
     big = torch.finfo(dtype).max
-    offs = _offsets(radius, dev)
-    V = offs.shape[0]
-    R = m.tab.shape[0]
-    C = V * SLOTS
-
-    anchors = _svx(voxel_key(m, queries) - radius)
-    b_all = _hash(anchors[:, None, :] + offs[None], R)
-    if qmask is not None:
-        b_all = torch.where(qmask[:, None], b_all, torch.zeros_like(b_all))
-    dup = _dup_rows(b_all)
-    rows = m.tab[b_all]  # (Q, V, SLOTS, 5)
-    occ = (rows[..., 0] != 0) & (~dup)[..., None]
-    if qmask is not None:
-        occ = occ & qmask[:, None, None]
-    cache_pts, cache_covs, cache_d2 = _topk_extract(
-        queries, rows[..., 1:4].reshape(Q, C, 3), rows[..., 4].reshape(Q, C),
-        occ.reshape(Q, C), cache_k, use_kernel,
-    )
-    del rows
+    b_all, alive = _window_rows(m, queries, radius, qmask)
+    window = knn_ops.knn_window if use_kernel else knn_ops.knn_window_plain
+    cache_pts, cache_covs, cache_d2 = window(m.tab, queries, b_all, alive, cache_k)
     cache_valid = cache_d2 < big
 
     ak = accept_k

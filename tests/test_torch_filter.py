@@ -135,12 +135,12 @@ def test_spd_inverse_and_small_inverses_match_jax():
 
 def _port_scenario(sc):
     tcfg = _port_cfg(sc["cfg"])
-    tmap = interop.map_from_numpy(_flat(sc["m"]))
+    tmap = interop.map_from_numpy(_flat(sc["m"]), "cpu")
     d = _flat(sc["sd"])
     for k in ("pt_lidar", "pt_epoch", "base"):
         d[k] = d[k].astype(np.int64)
     tsd = tmeas.ScanData(**{k: torch.as_tensor(v) for k, v in d.items()})
-    tx = interop.state_from_numpy(_flat(sc["x"]))
+    tx = interop.state_from_numpy(_flat(sc["x"]), "cpu")
     return tcfg, tmap, tsd, tx
 
 

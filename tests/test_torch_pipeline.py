@@ -131,6 +131,11 @@ def test_entry_points_require_a_card_unless_cpu():
         trunner.run_sequence(cfg, [], device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trunner.initial_covariance(cfg)
+    m = dict(tab=np.zeros((1, 32, 5), np.float32), voxel_size=np.float32(0.5),
+             n_dropped=np.int32(0), n_evicted=np.int32(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.map_from_numpy(m)  # the card by default, as the entry points
+    assert interop.map_from_numpy(m, "cpu").tab.device.type == "cpu"
 
 
 def _golden_cfg():
