@@ -15,6 +15,7 @@ import torch
 
 from ..geometry import so3, s2
 from .. import state as st
+from ..device import resolve_device
 
 
 class Input(NamedTuple):
@@ -23,11 +24,11 @@ class Input(NamedTuple):
 
 
 def process_noise_matrix(gyr_cov, acc_cov, b_gyr_cov, b_acc_cov,
-                         dtype=torch.float32, device="cpu"):
+                         dtype=torch.float32, device="cuda"):
     """12x12 diagonal Q, noise order [ng, na, nbg, nba]."""
     d = torch.tensor(
         [gyr_cov] * 3 + [acc_cov] * 3 + [b_gyr_cov] * 3 + [b_acc_cov] * 3,
-        dtype=dtype, device=device,
+        dtype=dtype, device=resolve_device(device),
     )
     return torch.diag(d)
 

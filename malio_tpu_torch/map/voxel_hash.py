@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops import knn as knn_ops
 from ..ops.knn import sqdist as _sqdist, topk_extract as _topk_extract, topk_min  # noqa: F401
 from ..preprocess import MASK32, mul32
@@ -46,8 +47,9 @@ class VoxelHashMap(NamedTuple):
         return self.tab.reshape(-1, 5)
 
 
-def create(capacity: int, voxel_size: float, dtype=torch.float32, device="cpu") -> VoxelHashMap:
+def create(capacity: int, voxel_size: float, dtype=torch.float32, device="cuda") -> VoxelHashMap:
     assert capacity & (capacity - 1) == 0, "capacity must be a power of two"
+    device = resolve_device(device)
     assert capacity >= SLOTS
     R = capacity // SLOTS
     tab = torch.zeros((R, SLOTS, 5), dtype=dtype, device=device)

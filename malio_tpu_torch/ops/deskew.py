@@ -8,7 +8,9 @@ version, the eager path of propagate.undistort over spline.get_pose_batch.
 `deskew_points` takes a CPU tensor to the plain version and a CUDA tensor
 to the kernel; there is no other fallback. The kernel works on rotation
 matrices, the plain version on quaternions: they agree to f32 round-off
-(atol 2e-5) with equal ok flags.
+(atol 2e-5) with equal ok flags. The kernel takes all LiDARs in one
+launch, up to its caps (MAX_LIDARS and MAX_CONTROL_POINTS in the .cu);
+past them the wrapper raises a ValueError.
 """
 from __future__ import annotations
 
@@ -39,15 +41,25 @@ def deskew_points_plain(pts, sp: spl.Spline, ext_q, ext_t, lt_q, lt_t):
 
 _fn = None
 
+REFUSED = -1  # csrc/deskew.cu: deskew_launch's answer to what it does not take
+# up to this many points (all LiDARs) a launch runs three lanes per point
+# and reads the spline through the read-only cache; above it one lane per
+# point with the spline staged in shared memory. chip_smoke.py's layout
+# sweep puts the crossover on an H100 at ~24,600 points with times in
+# random order and ~40,000 in a scan's order
+THREE_LANES_MAX_POINTS = 32768
+
 
 def _lib():
     global _fn
     if _fn is None:
         fn = _build.load("deskew").deskew_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p
-        ]
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int] + [ctypes.c_void_p] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        )
         _fn = fn
     return _fn
 
@@ -62,13 +74,25 @@ def _need(t, name, dtype, shape):
         raise ValueError(f"deskew kernel: {name} has shape {tuple(t.shape)}, want {shape}")
 
 
+def lanes_for(points: int) -> int:
+    """Lanes per point of the kernel's layout for this many points."""
+    return 3 if points <= THREE_LANES_MAX_POINTS else 1
+
+
 def deskew_points(pts, sp: spl.Spline, ext_q, ext_t, lt_q, lt_t):
     """Deskew (L, N, 4) points; same contract as `deskew_points_plain`.
-    CPU tensors run the plain version; CUDA tensors launch the kernel,
-    which reads the spline and the quaternion frames as they are: the
-    wrapper launches no other device work."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel in
+    the layout `lanes_for(L * N)` picks. It reads the spline and the
+    quaternion frames as they are: the wrapper launches no other device
+    work."""
     if pts.device.type == "cpu":
         return deskew_points_plain(pts, sp, ext_q, ext_t, lt_q, lt_t)
+    return _launch(pts, sp, ext_q, ext_t, lt_q, lt_t, lanes_for(pts.shape[0] * pts.shape[1]))
+
+
+def _launch(pts, sp, ext_q, ext_t, lt_q, lt_t, lanes):
+    """The kernel with `lanes` (1 or 3) per point; chip_smoke.py and the
+    card tests time and check each layout through it."""
     L, N = pts.shape[0], pts.shape[1]
     C = sp.cps.shape[0]
     f32 = torch.float32
@@ -84,13 +108,20 @@ def deskew_points(pts, sp: spl.Spline, ext_q, ext_t, lt_q, lt_t):
     out = torch.empty_like(pts)
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     err = _lib()(
-        pts.data_ptr(), L, N, sp.cps.data_ptr(), sp.logs.data_ptr(), sp.t0.data_ptr(),
+        pts.data_ptr(), L, N, sp.cps.data_ptr(), sp.logs.data_ptr(), C, sp.t0.data_ptr(),
         sp.num_valid.data_ptr(), ext_q.data_ptr(), ext_t.data_ptr(), lt_q.data_ptr(),
-        lt_t.data_ptr(), ctypes.c_float(spl.CONTROL_DT), out.data_ptr(), stream,
+        lt_t.data_ptr(), ctypes.c_float(spl.CONTROL_DT), lanes, out.data_ptr(), stream,
     )
+    if err == REFUSED:
+        raise ValueError(f"deskew kernel: it does not take {L} LiDARs with {C} control points "
+                         f"and {lanes} lanes a point (caps in csrc/deskew.cu)")
     _build.check(err, "deskew_launch")
-    deskew_points.launches += 1
+    if L * N:
+        deskew_points.launches += 1
+        by_shape = deskew_points.launches_by_shape
+        by_shape[L, N, C] = by_shape.get((L, N, C), 0) + 1
     return out
 
 
 deskew_points.launches = 0
+deskew_points.launches_by_shape = {}  # (LiDARs L, points N, control points C) -> launches

@@ -22,21 +22,10 @@ from . import propagate as prop
 from . import preprocess as pre
 from . import measurement as meas
 from . import uncertainty as unc
+from .device import resolve_device
 from .filter import esekf
 from .geometry import so3
 from .map import voxel_hash as vh
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; a CUDA request without a card
-    is an error, never a silent move to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "malio_tpu_torch: no CUDA device is available; pass device='cpu' "
-            "to run on the CPU"
-        )
-    return dev
 
 
 class LioCarry(NamedTuple):

@@ -23,6 +23,7 @@ import torch
 from . import state as st
 from . import spline as spl
 from . import uncertainty as unc
+from .device import resolve_device
 from .filter import dynamics
 from .ops import deskew as deskew_ops, kernel_enabled
 
@@ -39,7 +40,8 @@ class History(NamedTuple):
     n: torch.Tensor  # () int32 valid count
 
 
-def empty_history(cap: int, dtype=torch.float32, device="cpu") -> History:
+def empty_history(cap: int, dtype=torch.float32, device="cuda") -> History:
+    device = resolve_device(device)
     kw = dict(dtype=dtype, device=device)
     q = torch.zeros((cap, 4), **kw)
     q[:, 0] = 1.0

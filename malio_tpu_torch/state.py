@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from .device import resolve_device
 from .geometry import so3, s2
 
 S2_LENGTH = s2.DEFAULT_LENGTH
@@ -42,8 +43,8 @@ def where_state(cond, a: State, b: State) -> State:
     return State(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
-def identity_state(num_lidars: int, dtype=torch.float32, device="cpu") -> State:
-    kw = dict(dtype=dtype, device=device)
+def identity_state(num_lidars: int, dtype=torch.float32, device="cuda") -> State:
+    kw = dict(dtype=dtype, device=resolve_device(device))
     quat_id = torch.tensor([1.0, 0.0, 0.0, 0.0], **kw)
     return State(
         pos=torch.zeros(3, **kw),

@@ -3,10 +3,14 @@ the flagship path does not give them: windows of 1, 3, 8, 12 and 208 rows
 (both launch geometries of the fused k-NN window kernel, the wide one
 also at 12 rows, one or two a warp) with distance ties, windows with fewer
 valid lanes than K (lane 0 valid, invalid and dead), all-invalid windows,
-masked-off queries and duplicate rows; a point count off the block size;
-a spline with too few control points. k-NN is
-bit-equal; deskew agrees within atol 2e-5 with equal ok flags (rotation
-matrices in the kernel, quaternions in the plain version).
+masked-off queries and duplicate rows. The deskew kernel in both layouts
+(three lanes a point with the spline read through the cache, one lane with
+it staged in shared memory) on ragged point counts whose warps hold points
+of two LiDARs, 1 to 32 LiDARs, splines with no and with one valid
+interval, times exactly on the control grid and NaN times, and 3 x 65,536
+points; the layout the wrapper picks by point count; its refusals. k-NN is bit-equal; deskew
+agrees within atol 2e-5 with equal ok flags (rotation matrices in the
+kernel, quaternions in the plain version).
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
@@ -119,28 +123,109 @@ def test_knn_cached_kernel_equals_plain_on_the_card(card):
         assert torch.equal(a, b)
 
 
-def _spline(n_ctrl, dev):
+def _spline(n_ctrl, dev, cap=64, start=0.37):
     xi = torch.tensor([0.2, -0.1, 0.3, 1.0, 0.5, -0.2], dtype=torch.float32, device=dev)
     ts = torch.arange(n_ctrl, dtype=torch.float32, device=dev) * 0.01
     Ts = se3.exp_se3(ts[:, None] * xi[None])
-    return spl.feed_trajectory(ts, so3.mat_to_quat(Ts[:, :3, :3]), Ts[:, :3, 3].contiguous(),
-                               torch.ones(n_ctrl, dtype=torch.bool, device=dev), cap=64)
+    return spl.feed_trajectory(ts + start, so3.mat_to_quat(Ts[:, :3, :3]),
+                               Ts[:, :3, 3].contiguous(),
+                               torch.ones(n_ctrl, dtype=torch.bool, device=dev), cap=cap)
 
 
-@pytest.mark.parametrize("L,N,n_ctrl", [(2, 777, 40), (3, 256, 5), (1, 1, 40)])
-def test_deskew_kernel_matches_plain(card, L, N, n_ctrl):
-    rng = np.random.default_rng(N)
-    sp = _spline(n_ctrl, card)
-    pts = np.concatenate([rng.normal(size=(L, N, 3)) * 10,
-                          rng.uniform(-0.05, 0.45, size=(L, N, 1))], -1).astype(np.float32)
+def _deskew_args(L, N, C, num_valid, times, dev):
+    """Seeded points of L LiDARs around a spline of C control points
+    (num_valid of them valid), with times drawn as `times` says:
+    'spread' over the window and beyond both ends, 'first' near the first
+    interval, 'grid' exactly on t0 + k dt, 'nan' spread with every 7th
+    time NaN."""
+    rng = np.random.default_rng(L * 100003 + N)
+    sp = _spline(min(C, 40), dev, cap=C)
+    if num_valid is not None:
+        sp = sp._replace(num_valid=torch.tensor(num_valid, dtype=torch.int32, device=dev))
+    t0 = np.float32(sp.t0.item())
+    span = int(sp.num_valid.item()) * 0.01
+    if times == "first":
+        t = t0 + rng.uniform(0.0, 0.03, size=(L, N))
+    elif times == "grid":
+        k = rng.integers(-2, int(sp.num_valid.item()) + 2, size=(L, N)).astype(np.float32)
+        t = t0 + k * np.float32(0.01)
+    else:
+        t = t0 + rng.uniform(-0.05, span + 0.05, size=(L, N))
+    if times == "nan":
+        t.reshape(-1)[::7] = np.nan
+    pts = np.concatenate([rng.normal(size=(L, N, 3)) * 10, t[..., None]], -1).astype(np.float32)
     small = lambda s: torch.as_tensor(rng.normal(size=(L, 3)) * s, dtype=torch.float32,
-                                      device=card)
-    args = (torch.as_tensor(pts, device=card), sp, so3.exp_so3(small(0.2)), small(0.5),
+                                      device=dev)
+    return (torch.as_tensor(pts, device=dev), sp, so3.exp_so3(small(0.2)), small(0.5),
             so3.exp_so3(small(0.1)), small(1.0))
+
+
+_DESKEW_CASES = [
+    (2, 777, 64, None, "spread"),  # ragged end, two LiDARs in a warp
+    (3, 256, 64, 3, "spread"),  # num_valid 3: no point is ok
+    (3, 300, 64, 4, "first"),  # num_valid 4: one interval is ok
+    (1, 1, 64, None, "spread"),
+    (3, 4097, 64, None, "spread"),  # the path's L, one past its N
+    (32, 33, 64, None, "spread"),  # the LiDAR cap
+    (2, 500, 64, None, "grid"),  # times exactly on t0 + k dt
+    (2, 500, 64, None, "nan"),  # NaN times: unchanged, not ok
+    (2, 40001, 96, None, "spread"),  # ragged, above the three-lane point count
+    (3, 65536, 96, None, "spread"),  # 3 LiDARs at the Config default capacity
+]
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("L,N,C,num_valid,times", _DESKEW_CASES)
+def test_deskew_kernel_matches_plain(card, L, N, C, num_valid, times, lanes):
+    args = _deskew_args(L, N, C, num_valid, times, card)
     before = deskew.deskew_points.launches
-    got = deskew.deskew_points(*args)
+    got = deskew._launch(*args, lanes=lanes)
     want = deskew.deskew_points_plain(*args)
     torch.cuda.synchronize()
     assert deskew.deskew_points.launches == before + 1
     assert torch.equal(got[..., 3], want[..., 3])
     assert float((got[..., :3] - want[..., :3]).abs().max()) <= 2e-5
+    ok = want[..., 3] == 1
+    if num_valid == 3:
+        assert not ok.any()
+    elif times == "first":
+        rel = (args[0][..., 3] - args[1].t0) / torch.tensor(spl.CONTROL_DT, device=card)
+        assert ok.any() and bool((torch.floor(rel[ok]) == 1).all())
+    elif L * N > 100:
+        assert ok.any() and not ok.all()
+    # a point outside the window comes back as it went in
+    assert torch.equal(got[..., :3][~ok], args[0][..., :3][~ok])
+    if times == "nan":
+        assert not ok.reshape(-1)[::7].any()
+
+
+@pytest.mark.parametrize("L,N", [(3, 4096), (1, 65536), (2, 40001), (3, 65536)])
+def test_deskew_wrapper_picks_the_layout_by_point_count(card, L, N):
+    args = _deskew_args(L, N, 96, None, "spread", card)
+    lanes = 3 if L * N <= deskew.THREE_LANES_MAX_POINTS else 1
+    assert deskew.lanes_for(L * N) == lanes
+    before = dict(deskew.deskew_points.launches_by_shape)
+    got = deskew.deskew_points(*args)
+    want = deskew._launch(*args, lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    after = deskew.deskew_points.launches_by_shape
+    assert after[L, N, 96] == before.get((L, N, 96), 0) + 2
+
+
+def test_deskew_wrapper_refuses_what_the_kernel_does_not_take(card):
+    before = deskew.deskew_points.launches
+    many = _deskew_args(33, 8, 64, None, "spread", card)  # MAX_LIDARS is 32
+    long = _deskew_args(2, 8, 513, None, "spread", card)  # MAX_CONTROL_POINTS is 512
+    small = _deskew_args(2, 8, 64, None, "spread", card)
+    for args in (many, long):
+        with pytest.raises(ValueError):
+            deskew.deskew_points(*args)
+        for lanes in (1, 3):
+            with pytest.raises(ValueError):
+                deskew._launch(*args, lanes=lanes)
+    with pytest.raises(ValueError):
+        deskew._launch(*small, lanes=2)
+    with pytest.raises(ValueError):
+        deskew.deskew_points(small[0].double(), *small[1:])
+    assert deskew.deskew_points.launches == before

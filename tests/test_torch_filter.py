@@ -81,7 +81,7 @@ def test_transition_and_predict_match_jax():
     _close(tP.numpy(), jP)
     _close(tdyn.step_mean(tx, tu, torch.tensor(0.01, dtype=torch.float64)).pos.numpy(),
            jdyn.step_mean(jx, ju, 0.01).pos)
-    _close(tdyn.process_noise_matrix(0.1, 0.2, 0.3, 0.4, torch.float64).numpy(),
+    _close(tdyn.process_noise_matrix(0.1, 0.2, 0.3, 0.4, torch.float64, "cpu").numpy(),
            jdyn.process_noise_matrix(0.1, 0.2, 0.3, 0.4, jnp.float64))
 
 

@@ -69,7 +69,7 @@ def _same_map(tm, jm):
 def test_insert_and_evict_tables_equal(capacity):
     rng = np.random.default_rng(capacity)
     jm = jvh.create(capacity, 0.5, jnp.float32)
-    tm = tvh.create(capacity, 0.5, torch.float32)
+    tm = tvh.create(capacity, 0.5, torch.float32, "cpu")
     # first batch: every candidate at cov 0.001 (the first round's seed
     # covariance), so ties within a voxel fall to batch order
     jm, tm = _insert_both(jm, tm, *_batch(rng, 700, 8.0, 0.001, 0.001))
@@ -134,7 +134,7 @@ def _map_and_queries(seed, n_far):
     pts = rng.uniform(-8, 8, size=(n, 3)).astype(np.float32)
     covs = rng.uniform(0.01, 0.2, size=n).astype(np.float32)
     jm = jvh.create(1 << 12, 0.5, jnp.float32)
-    tm = tvh.create(1 << 12, 0.5, torch.float32)
+    tm = tvh.create(1 << 12, 0.5, torch.float32, "cpu")
     jm, tm = _insert_both(jm, tm, pts, covs, np.ones(n, bool))
     q_near = pts[:40] + 0.1
     q_far = rng.uniform(20, 28, size=(n_far, 3)).astype(np.float32)

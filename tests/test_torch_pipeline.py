@@ -20,7 +20,10 @@ from malio_tpu import runner as jrunner
 from malio_tpu.config import Config as JConfig, city_config as jcity
 
 import malio_tpu_torch  # noqa: F401
-from malio_tpu_torch import interop, pipeline as tpipe, runner as trunner
+from malio_tpu_torch import interop, pipeline as tpipe, propagate as tprop, runner as trunner
+from malio_tpu_torch import state as tst
+from malio_tpu_torch.filter import dynamics as tdyn
+from malio_tpu_torch.map import voxel_hash as tvh
 from malio_tpu_torch.config import Config as TConfig
 from malio_tpu_torch.io.assemble import assemble_groups
 from malio_tpu_torch.io.synthetic import SyntheticSequence
@@ -123,19 +126,35 @@ def test_three_city_rounds_match_jax():
     np.testing.assert_allclose(back["hist"]["t"], np.asarray(jc.hist.t), atol=1e-9)
 
 
-def test_entry_points_require_a_card_unless_cpu():
-    cfg = port_config(_city_small())
+_MAP = dict(tab=np.zeros((1, 32, 5), np.float32), voxel_size=np.float32(0.5),
+            n_dropped=np.int32(0), n_evicted=np.int32(0))
+# entry points and public constructors, each called as fn(**kw) with the
+# device left at its default, and a tensor of what it returns
+_ON_THE_CARD = {
+    "run_sequence": (lambda **kw: trunner.run_sequence(port_config(_city_small()), [], **kw),
+                     None),
+    "initial_covariance": (lambda **kw: trunner.initial_covariance(port_config(_city_small()),
+                                                                   **kw), lambda r: r),
+    "map_from_numpy": (lambda **kw: interop.map_from_numpy(_MAP, **kw), lambda r: r.tab),
+    "voxel_hash.create": (lambda **kw: tvh.create(1 << 8, 0.5, **kw), lambda r: r.tab),
+    "propagate.empty_history": (lambda **kw: tprop.empty_history(8, **kw), lambda r: r.q),
+    "state.identity_state": (lambda **kw: tst.identity_state(3, **kw), lambda r: r.ext_r),
+    "dynamics.process_noise_matrix": (
+        lambda **kw: tdyn.process_noise_matrix(0.1, 0.2, 0.3, 0.4, **kw), lambda r: r),
+}
+
+
+@pytest.mark.parametrize("name", list(_ON_THE_CARD))
+def test_entry_points_require_a_card_unless_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    fn, tensor_of = _ON_THE_CARD[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        trunner.run_sequence(cfg, [], device="cuda")
+        fn()  # the card by default
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        trunner.initial_covariance(cfg)
-    m = dict(tab=np.zeros((1, 32, 5), np.float32), voxel_size=np.float32(0.5),
-             n_dropped=np.int32(0), n_evicted=np.int32(0))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        interop.map_from_numpy(m)  # the card by default, as the entry points
-    assert interop.map_from_numpy(m, "cpu").tab.device.type == "cpu"
+        fn(device="cuda")
+    if tensor_of is not None:
+        assert tensor_of(fn(device="cpu")).device.type == "cpu"
 
 
 def _golden_cfg():
