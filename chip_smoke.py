@@ -18,7 +18,24 @@ events of torch.profiler, median of >= 30 launches) and per wrapper call
 (CUDA events around 100 back-to-back calls). It times the whole k-NN stage
 (`voxel_hash.knn_cached`), re-runs the first rounds with the plain
 versions, and traces a few steady rounds with torch.profiler to show where
-a round's time goes. Any failure exits non-zero; the last line is the
+a round's time goes.
+
+Then the slice's other paths, each with the launch counts set to 0 just
+before it and read just after (a path that launches a kernel no time
+fails): run_sequence with no hooks over two full chunks through
+pipeline.scan_steps (bit-equal to the main path's first 32 rounds); the
+live path, the same sequence pushed through OnlineEstimator in arrival
+order (trajectory bit-equal to the main path's; push-to-pose latency and
+poll() time); a checkpoint after round 20 saved, loaded into a fresh
+template and resumed for rounds 21-30 (bit-equal); the back end with
+loop-closure feedback at full sensor width, a 20 s revisiting circle
+through run_sequence with a WindowSmoother and a PoseGraphBackend
+(feedback=True, capacity 64): a loop closed, a correction fed back, graph
+ATE within 1.1 x odometry ATE + 0.01 m, no drops, and the times of every
+relax(), optimize_window() and apply_world_correction(); one
+optimize_sparse at 2048 keyframes; and voxel_hash.knn at K = 5 through the
+kernel bit-equal to its plain route, with the kernel's K = 5 shapes
+checked and timed. Any failure exits non-zero; the last line is the
 device summary.
 
     python3 chip_smoke.py                               # the smoke run
@@ -59,6 +76,21 @@ DESKEW_OPS_PER_POINT = 560
 DESKEW_OPS_OUTSIDE = 10
 # f32 operations per live lane of csrc/knn_window.cu: 3 sub, 3 mul, 2 add
 KNN_OPS_PER_LANE = 8
+SCAN_ROUNDS = 32  # two full chunks of run_sequence's 16 through pipeline.scan_steps
+RESUME_AT, RESUME_TO = 20, 30  # checkpoint after round 20, resume rounds 21-30
+# the back-end cell: the flagship on a revisiting circle (radius 4 m, closes
+# after ~13.6 s); PoseGraphBackend at its default widths but capacity 64
+# (default 2048), because relax() always runs the whole capacity
+BACKEND_SECONDS = 20.0
+BACKEND_SEED = 0
+BACKEND_CIRCLE = dict(yaw_rate=0.5, speed=2.0)
+BACKEND_CAPACITY = 64
+# the ICP settings tests/test_posegraph.py:611-616 gives sparse keyframe
+# clouds: at the defaults (1 m cells, 4 points a cell, quality 0.2) the
+# 1024-point clouds of this rig fill too few cells, and no loop candidate
+# passed the quality gate in a CPU rehearsal of this cell
+BACKEND_ICP = dict(cell_size=2.0, icp_min_pts=3, min_quality=0.05)
+SOLVER_K = 2048  # one optimize_sparse at the default capacity
 TRACE_LEAD_IN_S = 0.02  # host time between a profiler session's start and its first call
 TRACE_ATTEMPTS = 5
 TRACES = []  # one entry per profiler trace: calls (or rounds), events, markers found
@@ -232,7 +264,7 @@ def check_window(name, args, K):
     return err, stats
 
 
-def knn_phase(m, queries, qmask, cfg, K):
+def knn_phase(m, queries, qmask, cfg, K, suffix=""):
     """The fused k-NN window kernel at the path's shapes, on the map the
     main path built and one of its rounds' queries: the base window over
     every measurement lane, and the wide window over the first live
@@ -250,6 +282,7 @@ def knn_phase(m, queries, qmask, cfg, K):
     big = torch.finfo(torch.float32).max
     rows_out = []
     for name, q, radius, mask in shapes:
+        name += suffix
         q = q.contiguous()
         b, alive = vh._window_rows(m, q, radius, mask)
         args = (m.tab, q, b, alive)
@@ -285,7 +318,7 @@ def knn_phase(m, queries, qmask, cfg, K):
         b_ms, b_by = bound(nbytes, n_lanes * KNN_OPS_PER_LANE)
         rows_out.append(dict(
             name=name, route="cuda", source="malio_tpu_torch/csrc/knn_window.cu",
-            replaces="malio_tpu/ops/knn_pallas.py:88", shape=f"Q={Q} V={V} K={K}", Q=Q, V=V,
+            replaces="malio_tpu/ops/knn_pallas.py:88", shape=f"Q={Q} V={V} K={K}", Q=Q, V=V, K=K,
             max_abs_err=max(err, err_e), ms=ms, call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call,
             plain_device_ops=p_ops, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
             touched_rows=touched, live_lanes=n_lanes, library_ms=l_ms, library_call_ms=l_call,
@@ -695,20 +728,383 @@ def profile_phase(cfg, groups, n_init, round_ms, skip=8, active=5):
     return out
 
 
-def flagship_groups(cfg, duration, seed):
+def flagship_sequence(cfg, duration, seed, traj_kwargs=None):
+    """The flagship world seen by the City rig for `duration` seconds:
+    (imu, rounds, trajectory)."""
     import numpy as np
     from malio_tpu_torch.config import FLAGSHIP_RANGE_MAX, FLAGSHIP_WORLD
     from malio_tpu_torch.io.synthetic import SyntheticSequence
-    from malio_tpu_torch.io.assemble import assemble_groups
 
-    seq = SyntheticSequence(
+    return SyntheticSequence(
         duration=duration, num_lidars=3, points_per_scan=cfg.max_raw_points, seed=seed,
         ext_t=np.asarray(cfg.extrinsic_T, np.float64).reshape(3, 3),
         ext_q_wxyz=np.asarray(cfg.extrinsic_R, np.float64).reshape(3, 4),
-        range_max=FLAGSHIP_RANGE_MAX, world_kwargs=FLAGSHIP_WORLD,
-    )
-    imu, rounds, traj = seq.generate()
+        range_max=FLAGSHIP_RANGE_MAX, world_kwargs=FLAGSHIP_WORLD, traj_kwargs=traj_kwargs,
+    ).generate()
+
+
+def flagship_groups(cfg, duration, seed, traj_kwargs=None):
+    from malio_tpu_torch.io.assemble import assemble_groups
+
+    imu, rounds, traj = flagship_sequence(cfg, duration, seed, traj_kwargs)
     return assemble_groups(cfg, imu, rounds), traj
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count to 0."""
+    from malio_tpu_torch.ops import deskew, knn
+
+    knn.knn_window.launches = 0
+    knn.knn_window.launches_by_shape = {}
+    deskew.deskew_points.launches = 0
+    deskew.deskew_points.launches_by_shape = {}
+
+
+def read_launches(path, kernels=("knn_window", "deskew")):
+    """The launches of the run just driven, by kernel and shape; fails if
+    a kernel of the path was launched no time."""
+    from malio_tpu_torch.ops import deskew, knn
+
+    counts = dict(knn_window=dict(knn.knn_window.launches_by_shape),
+                  deskew=dict(deskew.deskew_points.launches_by_shape))
+    for name in kernels:
+        if not counts[name]:
+            raise AssertionError(f"{path} path: kernel {name} was launched no time ({counts})")
+    return counts
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _ms_since(t0):
+    _sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _same(name, got, want):
+    """Bit-equality of two host arrays, or a failure naming the largest
+    difference."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        d = np.abs(got - want).max() if got.shape == want.shape else "shape"
+        raise AssertionError(f"{name}: not bit-equal (shapes {got.shape} / {want.shape}, max "
+                             f"|difference| {d})")
+
+
+def scan_steps_phase(cfg, groups, n_init, res, dev="cuda"):
+    """run_sequence with no hooks over the first SCAN_ROUNDS rounds: two
+    full chunks through pipeline.scan_steps, which must give the main
+    path's (per-round, callback) poses and map sizes bit for bit."""
+    import torch
+    from malio_tpu_torch import runner
+
+    reset_launches()
+    t0 = time.perf_counter()
+    r = runner.run_sequence(cfg, groups[: n_init + SCAN_ROUNDS], dtype=torch.float32, device=dev)
+    wall = _ms_since(t0)
+    counts = read_launches("scan_steps")
+    for f in ("t", "pos", "quat", "map_size"):
+        _same(f"scan_steps {f}", r[f], res[f][:SCAN_ROUNDS])
+    log(f"scan_steps: {len(r['t'])} rounds in two chunks bit-equal to the main path's first "
+        f"{SCAN_ROUNDS} (pos, quat, map_size); {wall:.0f} ms")
+    return dict(rounds=len(r["t"]), wall_ms=wall), counts
+
+
+def _arrival_order(imu, rounds):
+    """IMU samples and scans as a live rig delivers them (a scan arrives at
+    its end time), in the form OnlineEstimator takes."""
+    events = [("imu", row[0], row) for row in imu]
+    for rnd in rounds:
+        for l, s in enumerate(rnd):
+            rel = s["pts"].copy()
+            rel[:, 3] -= s["beg_t"]
+            events.append(("scan", s["end_t"], (l, s["beg_t"], rel, s["end_t"] - s["beg_t"])))
+    events.sort(key=lambda e: e[1])
+    return events
+
+
+def online_phase(cfg, imu, rounds, res, ate_main, traj, dev="cuda"):
+    """The live path: the flagship sequence pushed through OnlineEstimator
+    in arrival order, polled after every push that fused a round, then
+    flush() and a last poll(). Round count, times and poses must equal the
+    main path's bit for bit. Push-to-pose latency: host clock from the
+    push that completes a round to poll() returning its pose (poll
+    synchronises)."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import online
+    from malio_tpu_torch.eval.ate import ate_rmse
+
+    reset_launches()
+    est = online.OnlineEstimator(cfg, dtype=torch.float32, device=dev)
+    outs, latency, poll_ms = [], [], []
+    t_all = time.perf_counter()
+    for kind, _, p in _arrival_order(imu, rounds):
+        t0 = time.perf_counter()
+        if kind == "imu":
+            est.push_imu(p[0], p[1:4], p[4:7])
+        else:
+            est.push_scan(p[0], p[1], p[2], duration=p[3])
+        if est._pending:
+            t1 = time.perf_counter()
+            got = est.poll()
+            t2 = time.perf_counter()
+            poll_ms.append((t2 - t1) * 1e3)
+            latency.extend([(t2 - t0) * 1e3] * len(got))
+            outs.extend(got)
+    est.flush()
+    t1 = time.perf_counter()
+    got = est.poll()
+    poll_ms.append((time.perf_counter() - t1) * 1e3)
+    outs.extend(got)
+    wall = _ms_since(t_all)
+    counts = read_launches("online")
+    t = np.asarray([o["t"] for o in outs])
+    pos = np.stack([o["pos"] for o in outs])
+    if len(outs) != len(res["t"]):
+        raise AssertionError(f"online: {len(outs)} rounds, the main path {len(res['t'])}")
+    _same("online t", t, res["t"])
+    _same("online pos", pos, res["pos"])
+    _same("online quat", np.stack([o["quat"] for o in outs]), res["quat"])
+    ate = ate_rmse(pos, traj.pos(t))
+    _same("online ATE", ate, ate_main)
+    q = lambda a, p_: float(np.percentile(a, p_))
+    out = dict(rounds=len(outs), ate_m=ate, wall_ms=wall, n_dropped_scans=est.n_dropped_scans,
+               latency_ms=dict(p50=q(latency, 50), p90=q(latency, 90), max=max(latency)),
+               poll_ms=dict(p50=q(poll_ms, 50), p90=q(poll_ms, 90), max=max(poll_ms),
+                            calls=len(poll_ms)))
+    log(f"online: {len(outs)} rounds, trajectory and ATE {ate:.6f} m bit-equal to the main path; "
+        f"push-to-pose latency p50 {out['latency_ms']['p50']:.1f} ms, p90 "
+        f"{out['latency_ms']['p90']:.1f} ms, max {out['latency_ms']['max']:.1f} ms; poll() p50 "
+        f"{out['poll_ms']['p50']:.2f} ms over {len(poll_ms)} calls; dropped scans "
+        f"{est.n_dropped_scans}")
+    return out, counts
+
+
+def resume_phase(cfg, groups, n_init, saved, res, out_dir, dev="cuda"):
+    """Checkpoint/resume: the carry after round RESUME_AT saved, loaded into
+    a fresh template, rounds RESUME_AT+1..RESUME_TO stepped from it; poses,
+    times and map sizes must equal the uninterrupted main path's."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import checkpoint, pipeline, runner, state
+    from malio_tpu_torch import propagate as prop
+
+    path = out_dir / "resume_carry.npz"
+    _sync()
+    t0 = time.perf_counter()
+    checkpoint.save(path, saved)
+    save_ms = _ms_since(t0)
+    size = path.stat().st_size
+    L = cfg.num_lidars
+    n = state.dof(L)
+    template = pipeline.init_carry(
+        cfg, state.identity_state(L, device=dev), torch.eye(n, dtype=torch.float64, device=dev),
+        torch.eye(12, device=dev), torch.float32, dev)
+    t0 = time.perf_counter()
+    loaded = checkpoint.load(path, template)
+    load_ms = _ms_since(t0)
+    path.unlink()
+    for (k, a), (_, b) in zip(checkpoint._leaves(loaded), checkpoint._leaves(saved)):
+        if not (a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)):
+            raise AssertionError(f"checkpoint: {k} did not load back as saved")
+    reset_launches()
+    chunk = groups[n_init + RESUME_AT : n_init + RESUME_TO]
+    gdev, bases = runner._stack_chunk(chunk, np.float32,
+                                      runner.group_base(groups[n_init + RESUME_AT - 1]), dev)
+    c, rows = loaded, []
+    for k in range(len(chunk)):
+        c, o = pipeline.step(cfg, c, prop.MeasureGroup(*(a[k] for a in gdev)), device=dev)
+        rows.append((float(o.end_time) + bases[k], o.pos.cpu().numpy(), o.quat.cpu().numpy(),
+                     int(o.map_size)))
+    counts = read_launches("resume")
+    for i, f in enumerate(("t", "pos", "quat", "map_size")):
+        _same(f"resume {f}", np.asarray([r[i] for r in rows]), res[f][RESUME_AT:RESUME_TO])
+    log(f"checkpoint: {size} B npz, save {save_ms:.0f} ms, load {load_ms:.0f} ms; rounds "
+        f"{RESUME_AT + 1}-{RESUME_TO} resumed bit-equal to the uninterrupted run")
+    return dict(file_bytes=size, save_ms=save_ms, load_ms=load_ms,
+                rounds=RESUME_TO - RESUME_AT), counts
+
+
+class _Timed:
+    """Wraps a module's or object's function for one phase: each call is
+    timed on the host clock between two synchronises."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.ms = owner, name, []
+        self.fn = getattr(owner, name)
+
+    def __enter__(self):
+        import torch
+
+        def timed(*a, **kw):
+            _sync()
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            self.ms.append(_ms_since(t0))
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def backend_phase(cfg, seconds=BACKEND_SECONDS, dev="cuda"):
+    """The back end with loop-closure feedback at full sensor width: the
+    flagship config, world and capacities on a revisiting circle for
+    BACKEND_SECONDS, through run_sequence with a WindowSmoother at its
+    defaults and a PoseGraphBackend(feedback=True) at its default widths
+    but capacity BACKEND_CAPACITY and the sparse-cloud ICP settings
+    BACKEND_ICP. Requires a closed loop, a staged
+    correction, graph ATE <= 1.1 x odometry ATE + 0.01 m (both unaligned,
+    as tests/test_posegraph.py:642 judges) and no drops."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import ba, pipeline, posegraph, runner, smoother
+    from malio_tpu_torch.eval.ate import ate_rmse
+    from malio_tpu_torch.io.assemble import assemble_groups
+
+    t0 = time.perf_counter()
+    imu, rounds, traj = flagship_sequence(cfg, seconds, BACKEND_SEED, BACKEND_CIRCLE)
+    groups = assemble_groups(cfg, imu, rounds)
+    gen_s = time.perf_counter() - t0
+    sm = smoother.WindowSmoother(device=dev)
+    pg = posegraph.PoseGraphBackend(feedback=True, capacity=BACKEND_CAPACITY, device=dev,
+                                    **BACKEND_ICP)
+    reset_launches()
+    t0 = time.perf_counter()
+    with _Timed(pg, "relax") as relax, _Timed(ba, "optimize_window") as bundle, \
+            _Timed(pipeline, "apply_world_correction") as corr:
+        res = runner.run_sequence(cfg, groups, dtype=torch.float32, device=dev,
+                                  smoother=sm, posegraph=pg)
+    wall = _ms_since(t0)
+    counts = read_launches("backend")
+    ate_odo = ate_rmse(res["pos"], traj.pos(res["t"]), align=False)
+    ts, ps, _ = res["smoothed"]
+    ate_smooth = ate_rmse(ps, traj.pos(ts), align=False) if len(ts) else float("nan")
+    tg, pgp, qg = res["graph"]
+    ate_graph = ate_rmse(pgp, traj.pos(tg), align=False)
+    drops = (int(res["map_dropped"][-1]), int(res["n_meas_dropped"].max()))
+    out = dict(seconds=seconds, seed=BACKEND_SEED, capacity=BACKEND_CAPACITY,
+               rounds=len(res["t"]), generate_s=gen_s, wall_ms=wall, ate_odometry_m=ate_odo,
+               ate_smoothed_m=ate_smooth, ate_graph_m=ate_graph, keyframes=pg.count,
+               smoothed_keyframes=len(ts), n_loop_edges=pg.n_loop_edges,
+               n_feedback=pg.n_feedback, map_dropped=drops[0], meas_dropped=drops[1],
+               relax_ms=relax.ms, optimize_window_ms=bundle.ms, apply_world_correction_ms=corr.ms,
+               icp=BACKEND_ICP,
+               loop_edge_s=[float(pg.times[e[1]]) for e in pg.edges if e[5] == "loop"])
+    log(f"back end ({seconds:.0f} s circle, seed {BACKEND_SEED}, capacity "
+        f"{BACKEND_CAPACITY}): {len(res['t'])} rounds in {wall / 1e3:.1f} s, {pg.count} keyframes, "
+        f"{pg.n_loop_edges} loop edges (keyframes at {[round(x, 1) for x in out['loop_edge_s']]} s), "
+        f"{pg.n_feedback} corrections fed back; ATE odometry "
+        f"{ate_odo:.4f} m, smoothed {ate_smooth:.4f} m, graph {ate_graph:.4f} m (unaligned); drops "
+        f"{drops}; relax() ms {[round(x, 1) for x in relax.ms]}; optimize_window ms "
+        f"{[round(x, 1) for x in bundle.ms]}; apply_world_correction ms "
+        f"{[round(x, 1) for x in corr.ms]}")
+    if not (np.isfinite(pgp).all() and np.isfinite(res["pos"]).all() and np.isfinite(ps).all()):
+        raise AssertionError("back end: non-finite trajectory")
+    if pg.n_loop_edges < 1 or pg.n_feedback < 1:
+        raise AssertionError(f"back end: {pg.n_loop_edges} loop edges, {pg.n_feedback} corrections")
+    if not ate_graph <= 1.1 * ate_odo + 0.01:
+        raise AssertionError(f"back end: graph ATE {ate_graph} > 1.1 x {ate_odo} + 0.01")
+    if drops != (0, 0):
+        raise AssertionError(f"back end: map / measurement drops {drops}")
+    return out, counts
+
+
+def solver_phase(K=SOLVER_K, dev="cuda"):
+    """One optimize_sparse at SOLVER_K keyframes with ~20 loop edges, the
+    scene of tests/test_posegraph.py:703 (two laps of a 60 m circle, noisy
+    odometry, loops one lap apart) built with the port's own code, timed
+    on the card. Requires the cost to fall 20-fold and the aligned ATE
+    to fall 30 %, as that test does."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import posegraph as pgm
+    from malio_tpu_torch.eval.ate import ate_rmse
+    from malio_tpu_torch.geometry import so3
+
+    rng = np.random.default_rng(1)
+    th = np.linspace(0, 4 * np.pi, K)
+    t_gt = np.stack([60 * np.cos(th), 60 * np.sin(th), 2.0 * np.sin(5 * th)], -1)
+    q_gt = np.stack([np.cos(th / 2), np.zeros(K), np.zeros(K), np.sin(th / 2)], -1)
+    h = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    zq, zt = (x.numpy() for x in pgm.relative_pose(h(q_gt[:-1]), h(t_gt[:-1]), h(q_gt[1:]),
+                                                    h(t_gt[1:])))
+    q_est, t_est = np.tile([1.0, 0, 0, 0], (K, 1)), np.zeros((K, 3))
+    q_est[0], t_est[0] = q_gt[0], t_gt[0]
+    odo = []
+    for i in range(K - 1):
+        zqn = zq[i] + rng.normal(size=4) * 2e-4
+        zqn /= np.linalg.norm(zqn)
+        ztn = zt[i] + rng.normal(size=3) * 5e-3
+        odo.append((i, i + 1, zqn, ztn, 1.0))
+        q_est[i + 1] = so3.quat_mul(h(q_est[i]), h(zqn)).numpy()
+        t_est[i + 1] = t_est[i] + so3.quat_rotate(h(q_est[i]), h(ztn)).numpy()
+    loops = []
+    for k in range(20):
+        i = 51 * k + 7
+        j = i + K // 2  # the same bearing one lap later
+        if j >= K:
+            break
+        a, b = pgm.relative_pose(h(q_gt[i]), h(t_gt[i]), h(q_gt[j]), h(t_gt[j]))
+        loops.append((i, j, a.numpy(), b.numpy(), 3.0, "loop"))
+    packer = pgm.PoseGraphBackend(capacity=K, loop_capacity=32, cloud_points=1, device=dev)
+    odo_e = packer._pack_edges([e + ("odo",) for e in odo], K - 1)
+    loop_e = packer._pack_edges(loops, 32)
+    f64 = dict(dtype=torch.float64, device=dev)
+    q0, t0_ = torch.as_tensor(q_est, **f64), torch.as_tensor(t_est, **f64)
+    _sync()
+    t0 = time.perf_counter()
+    qs, ts, c1, c0 = pgm.optimize_sparse(q0, t0_, odo_e, loop_e, iters=8)
+    ms = _ms_since(t0)
+    ts = ts.cpu().numpy()
+    ate0, ate1 = ate_rmse(t_est, t_gt), ate_rmse(ts, t_gt)
+    c0, c1 = float(c0), float(c1)
+    out = dict(K=K, loop_edges=len(loops), iters=8, ms=ms, cost0=c0, cost1=c1,
+               ate0_m=ate0, ate1_m=ate1)
+    log(f"optimize_sparse K={K}, {len(loops)} loop edges, 8 iterations: {ms / 1e3:.2f} s on the "
+        f"card; cost {c0:.4g} -> {c1:.4g}; aligned ATE {ate0:.3f} -> {ate1:.3f} m")
+    if not (c1 < 0.05 * c0 and ate1 < 0.7 * ate0):
+        raise AssertionError(f"optimize_sparse at K={K}: cost {c0} -> {c1}, ATE {ate0} -> {ate1}")
+    return out
+
+
+def knn_function_check(m, queries, qmask, cfg):
+    """vh.knn at K = 5 (the base window and the budgeted wide escalation) on
+    the main path's map and last queries: through the fused kernel, then
+    with the wrapper's plain version in its place; bit-equal."""
+    import torch
+    from malio_tpu_torch import measurement as meas
+    from malio_tpu_torch.map import voxel_hash as vh
+    from malio_tpu_torch.ops import knn
+
+    kw = dict(k=vh.NUM_MATCH_POINTS, radius=cfg.knn_radius, wide_radius=cfg.knn_wide_radius,
+              wide_budget=cfg.knn_wide_budget, qmask=qmask, accept_d2=meas.NN_REJECT_D2)
+    reset_launches()
+    got = vh.knn(m, queries, **kw)
+    _sync()
+    counts = read_launches("knn_k5", kernels=("knn_window",))
+    kernel = knn.knn_window
+    knn.knn_window = knn.knn_window_plain
+    try:
+        want = vh.knn(m, queries, **kw)
+    finally:
+        knn.knn_window = kernel
+    for name, a, b in zip(("nn_pts", "nn_covs", "nn_d2", "nn_cnt", "n_miss"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"vh.knn {name}: kernel route differs from the plain route")
+    log(f"vh.knn K=5 on the main path's map and last queries: bit-equal to the plain route; "
+        f"n_miss {int(got[4])}; launches {counts['knn_window']} (Q, V, K): n")
+    return dict(n_miss=int(got[4])), counts
 
 
 def sum_order_check():
@@ -724,6 +1120,13 @@ def sum_order_check():
     q = torch.rand(1, 3, device="cuda", generator=g) * 10 - 5
     d = p - q
     return int(((d * d).sum(-1) != knn.sqdist(p, q)).sum()), p.shape[0]
+
+
+def _clone(tree):
+    """A copy of a nested NamedTuple of tensors."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    return tree.clone()
 
 
 def gpu_name_and_limit():
@@ -748,8 +1151,16 @@ def main(save_stage_inputs=None):
     from malio_tpu_torch import runner
     from malio_tpu_torch.config import Config, flagship_config
     from malio_tpu_torch.eval.ate import ate_rmse
+    from malio_tpu_torch.io.assemble import assemble_groups
     from malio_tpu_torch.map import voxel_hash as vh
     from malio_tpu_torch.ops import _build, deskew, knn
+
+    t_start = time.perf_counter()
+    elapsed = {}  # seconds since the start at the end of each phase
+
+    def done(phase):
+        elapsed[phase] = time.perf_counter() - t_start
+        log(f"[{elapsed[phase]:.0f} s] {phase} done")
 
     smi = gpu_name_and_limit()
     log(smi)
@@ -777,13 +1188,17 @@ def main(save_stage_inputs=None):
     v_base = len(vh._svx_ball_offsets(cfg.knn_radius))
     v_wide = len(vh._svx_ball_offsets(cfg.knn_wide_radius))
     t0 = time.perf_counter()
-    groups, traj = flagship_groups(cfg, duration=8.0, seed=0)
+    imu, rounds_raw, traj = flagship_sequence(cfg, duration=8.0, seed=0)
+    groups = assemble_groups(cfg, imu, rounds_raw)
     log(f"flagship world + {len(groups)} measure groups generated in {time.perf_counter() - t0:.1f} s")
     stamps = []
+    saved = {}
 
     def tick(carry, out, base):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        if len(stamps) == RESUME_AT:  # the carry after round RESUME_AT, for the resume phase
+            saved["carry"] = _clone(carry)
 
     # keep the last round's k-NN queries and deskew arguments for the
     # kernel and stage phases
@@ -801,10 +1216,7 @@ def main(save_stage_inputs=None):
     vh.knn_cached = recording_knn_cached
     prop.deskew_ops = types.SimpleNamespace(deskew_points=recording_deskew,
                                             deskew_points_plain=deskew.deskew_points_plain)
-    knn.knn_window.launches = 0
-    knn.knn_window.launches_by_shape = {}
-    deskew.deskew_points.launches = 0
-    deskew.deskew_points.launches_by_shape = {}
+    reset_launches()
     t0 = time.perf_counter()
     try:
         res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda", callback=tick)
@@ -813,11 +1225,12 @@ def main(save_stage_inputs=None):
         vh.knn_cached = knn_cached
         prop.deskew_ops = deskew
     wall = time.perf_counter() - t0
-    by_shape = dict(knn.knn_window.launches_by_shape)
-    n_base = sum(n for (q, v), n in by_shape.items() if v == v_base)
-    n_wide = sum(n for (q, v), n in by_shape.items() if v == v_wide)
+    paths = {"main": read_launches("main")}
+    by_shape = paths["main"]["knn_window"]
+    n_base = sum(n for (q, v, k), n in by_shape.items() if v == v_base)
+    n_wide = sum(n for (q, v, k), n in by_shape.items() if v == v_wide)
     n_desk = deskew.deskew_points.launches
-    desk_by_shape = dict(deskew.deskew_points.launches_by_shape)
+    desk_by_shape = paths["main"]["deskew"]
     rounds = len(res["t"])
     if n_base == 0 or n_wide == 0 or n_desk == 0:
         raise AssertionError(f"main path skipped a kernel: knn_window {by_shape}, deskew {n_desk}")
@@ -830,12 +1243,13 @@ def main(save_stage_inputs=None):
     log(f"ATE {ate:.6f} m (gate {ATE_GATE_M}), map_dropped {int(res['map_dropped'][-1])}, "
         f"meas_dropped max {int(res['n_meas_dropped'].max())}, nn_miss p50 {miss_p50}, "
         f"map_size {int(res['map_size'][-1])}, launches knn_window {by_shape} "
-        f"(Q, V): n, deskew {desk_by_shape} (L, N, C): n")
+        f"(Q, V, K): n, deskew {desk_by_shape} (L, N, C): n")
     if not (np.isfinite(ate) and ate <= ATE_GATE_M):
         raise AssertionError(f"ATE {ate} is not finite or exceeds {ATE_GATE_M} m")
     if not np.all(np.isfinite(res["pos"])) or res["pos"].shape != (rounds, 3):
         raise AssertionError("trajectory has non-finite values or a wrong shape")
 
+    done("main path")
     # ---- kernels against their plain versions, timed, at the path's shapes ----
     m = res["carry"].map
     queries, qmask = last_search["queries"], last_search["qmask"]
@@ -847,9 +1261,10 @@ def main(save_stage_inputs=None):
                         n_evicted=m.n_evicted, queries=queries, qmask=qmask,
                         deskew={k: v.clone() for k, v in desk.items()}), save_stage_inputs)
     knn_rows = knn_phase(m, queries, qmask, cfg, K)
-    knn_rows[0]["launches"] = n_base
-    knn_rows[1]["launches"] = by_shape.get((256, v_wide), 0)
-    knn_rows[2]["launches"] = by_shape.get((cfg.knn_wide_budget, v_wide), 0)
+    # voxel_hash.knn's K = 5 (off the main path): the whole function, then
+    # the kernel at its shapes
+    report["knn_k5"], paths["knn_k5"] = knn_function_check(m, queries, qmask, cfg)
+    knn_rows += knn_phase(m, queries, qmask, cfg, vh.NUM_MATCH_POINTS, suffix="_k5")
     L = cfg.num_lidars
     desk_rows = [
         deskew_phase("deskew", deskew_inputs(L, cfg.max_raw_points, cfg.spline_capacity, seed=1),
@@ -861,9 +1276,6 @@ def main(save_stage_inputs=None):
         deskew_phase("deskew_capacity",
                      deskew_inputs(L, Config.max_raw_points, Config.spline_capacity, seed=1), floor),
     ]
-    # the main path's launches at each row's shape
-    for r in desk_rows:
-        r["launches"] = desk_by_shape.get(r.pop("shape_key"), 0)
     report["deskew_layout_sweep"] = deskew_layout_sweep()
 
     # ---- the whole k-NN stage, kernel and plain ----
@@ -890,20 +1302,43 @@ def main(save_stage_inputs=None):
     # ---- where a steady round's time goes ----
     report["profile"] = profile_phase(cfg, groups, n_init, round_ms=1e3 / steady)
 
+    done("kernel, stage, plain and profile phases")
+
+    # ---- the slice's other paths, each with its own launch counts ----
+    report["scan_steps"], paths["scan_steps"] = scan_steps_phase(cfg, groups, n_init, res)
+    done("scan_steps")
+    report["online"], paths["online"] = online_phase(cfg, imu, rounds_raw, res, ate, traj)
+    done("online")
+    report["resume"], paths["resume"] = resume_phase(cfg, groups, n_init, saved["carry"], res,
+                                                     out_dir)
+    del saved["carry"]
+    done("resume")
+    report["backend"], paths["backend"] = backend_phase(cfg)
+    done("back end")
+    report["solver"] = solver_phase()
+    done("solver")
+
     kernels = knn_rows + desk_rows
     for r in kernels:
         r["floor_ms"] = floor
+        if "K" in r:
+            key, counts = (r["Q"], r["V"], r["K"]), "knn_window"
+        else:
+            key, counts = r.pop("shape_key"), "deskew"
+        r["launches_by_path"] = {p: c[counts].get(key, 0) for p, c in paths.items()}
+        r["launches"] = r["launches_by_path"]["main"]  # the main path's launches at the row's shape
     keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
             "call_ms", "plain_ms", "plain_call_ms", "bound_ms", "bound_by", "library_ms",
-            "library_call_ms", "bound_with_floor_ms")
+            "library_call_ms", "bound_with_floor_ms", "launches_by_path")
     report.update(
         kernels=kernels, rounds=rounds, wall_s=wall, steady_scans_per_s=steady, ate_m=ate,
         map_dropped=res["map_dropped"].tolist(), nn_miss=res["nn_miss"].tolist(),
         meas_dropped=res["n_meas_dropped"].tolist(), iterations=res["iterations"].tolist(),
         map_size=res["map_size"].tolist(), round_s=np.diff(stamps).tolist(),
-        plain_max_dpos_m=dpos, knn_launches_by_shape={f"{q},{v}": n for (q, v), n in by_shape.items()},
-        deskew_launches_by_shape={",".join(map(str, k)): n for k, n in desk_by_shape.items()},
-        traces=len(TRACES), trace_retakes=[t for t in TRACES if not t["ok"]],
+        plain_max_dpos_m=dpos,
+        launches_by_path={p: {k: {",".join(map(str, sh)): n for sh, n in c[k].items()} for k in c}
+                          for p, c in paths.items()},
+        traces=len(TRACES), trace_retakes=[t for t in TRACES if not t["ok"]], elapsed_s=elapsed,
     )
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(smi)

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import knn as knn_ops
+from ..geometry import so3
+from ..ops import kernel_enabled, knn as knn_ops
 from ..ops.knn import sqdist as _sqdist, topk_extract as _topk_extract, topk_min  # noqa: F401
 from ..preprocess import MASK32, mul32
 
@@ -110,6 +111,19 @@ def _first_true(mask):
     """Index of the first True along the last axis (0 if none), like
     jnp.argmax on a boolean array."""
     return torch.argmax(mask.to(torch.uint8), dim=-1)
+
+
+def lookup(m: VoxelHashMap, keys):
+    """Flat slot holding each voxel key: (slot, found), slot 0 where not
+    found (mask with `found`)."""
+    R = m.tab.shape[0]
+    b = _hash(_svx(keys), R)
+    rows = m.tab[b]  # (..., SLOTS, 5)
+    want = _fingerprint(keys).to(m.tab.dtype)
+    match = rows[..., 0] == want[..., None]
+    found = torch.any(match, dim=-1)
+    slot = b * SLOTS + _first_true(match)
+    return torch.where(found, slot, torch.zeros_like(slot)), found
 
 
 def _segment_rank(seg_start, member):
@@ -204,8 +218,69 @@ def evict_outside(m: VoxelHashMap, box_min, box_max) -> VoxelHashMap:
     return m._replace(tab=new.reshape(m.tab.shape))
 
 
+def transform(m: VoxelHashMap, dq, dt) -> VoxelHashMap:
+    """Every stored point moved by the world-frame correction
+    p' = R(dq) p + dt and re-hashed into a fresh table through `insert`
+    (a loop closure re-anchoring the world frame). Covariances ride along;
+    points meeting in one voxel keep the lowest covariance, and a full
+    target row counts into n_dropped."""
+    fresh = create(m.capacity, 1.0, m.tab.dtype, m.tab.device)._replace(
+        voxel_size=m.voxel_size, n_dropped=m.n_dropped, n_evicted=m.n_evicted
+    )
+    pts, covs, occ = flatten(m)
+    pts = so3.quat_rotate(dq[None], pts) + dt
+    covs = torch.where(occ, covs, torch.full_like(covs, float("inf")))
+    return insert(fresh, pts, covs, occ)
+
+
 def size(m: VoxelHashMap):
     return torch.sum(m.flat[:, 0] != 0)
+
+
+def flatten(m: VoxelHashMap):
+    """Live map contents as flat views: (pts (T, 3), covs (T,), occ (T,))."""
+    flat = m.flat
+    return flat[:, 1:4], flat[:, 4], flat[:, 0] != 0
+
+
+def extract_points(m: VoxelHashMap):
+    """Host-side compaction of flatten(): numpy (pts (n, 3), covs (n,))
+    of the occupied cells, the input of a map dump."""
+    pts, covs, occ = (a.cpu().numpy() for a in flatten(m))
+    return pts[occ], covs[occ]
+
+
+def _masked_take(m: VoxelHashMap, mask, max_results: int):
+    """The first max_results masked slots in slot order, padded with slot
+    T - 1 (jnp.nonzero(size=, fill_value=T-1)): (pts (K, 3), covs (K,),
+    valid (K,), total) with `total` the full match count, which may exceed
+    K."""
+    T = m.capacity
+    dev = m.tab.device
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    tgt = torch.where(mask & (rank < max_results), rank, torch.full_like(rank, max_results))
+    idx = torch.full((max_results + 1,), T - 1, dtype=torch.int64, device=dev)
+    idx[tgt] = torch.arange(T, device=dev)  # slot max_results is the dump
+    idx = idx[:max_results]
+    total = torch.sum(mask).to(torch.int32)
+    pts, covs, _ = flatten(m)
+    valid = torch.arange(max_results, device=dev) < total
+    return pts[idx], covs[idx], valid, total
+
+
+def box_search(m: VoxelHashMap, box_min, box_max, max_results: int = 1024):
+    """Stored points inside an axis-aligned box, the ikd-tree Box_Search
+    analog: up to max_results points plus the true match count."""
+    pts, _, occ = flatten(m)
+    inside = torch.all((pts >= box_min) & (pts <= box_max), dim=-1)
+    return _masked_take(m, occ & inside, max_results)
+
+
+def radius_search(m: VoxelHashMap, center, radius, max_results: int = 1024):
+    """Stored points within `radius` of `center`, the ikd-tree
+    Radius_Search analog."""
+    pts, _, occ = flatten(m)
+    return _masked_take(m, occ & (_sqdist(pts, center) <= radius * radius), max_results)
 
 
 @functools.lru_cache(maxsize=None)
@@ -322,6 +397,61 @@ def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool 
         b_d2, idx = topk_min(all_d2, k)
         b_pts, b_covs = _take(all_pts, idx), _take(all_covs, idx)
     return b_pts, b_covs, b_d2, torch.sum(b_d2 < big, dim=-1)
+
+
+def knn(
+    m: VoxelHashMap,
+    queries,
+    k: int = NUM_MATCH_POINTS,
+    radius: int = 1,
+    wide_radius: int = 0,
+    wide_budget: int = 0,
+    qmask=None,
+    accept_d2=5.0,
+    accept_k: int | None = None,
+):
+    """Batched k-NN over the voxel neighbourhood with budgeted escalation.
+
+    Returns nn_pts (Q, k, 3), nn_covs (Q, k), nn_d2 (Q, k) ascending,
+    nn_cnt (Q,) and n_miss (): the queries (within qmask) that fail the
+    acceptance rule (accept_k found, the accept_k-th d2 <= accept_d2)
+    after the search. With wide_radius > radius and wide_budget > 0, up to
+    wide_budget failing queries are searched again over the wide window
+    and their results spliced back (rank by prefix count, one uniquely
+    indexed inverse permutation, a gather and a select). On an f32 CUDA map
+    both windows run the fused window kernel."""
+    use_kernel = kernel_enabled(None, m.tab)
+    dtype = m.tab.dtype
+    dev = m.tab.device
+    queries = queries.to(dtype).contiguous()
+    res = _knn_window(m, queries, k, radius, use_kernel=use_kernel)
+    ak = accept_k if accept_k is not None else k
+    acc = torch.tensor(accept_d2, dtype=dtype, device=dev)
+
+    def misses(r):
+        _, _, d2, cnt = r
+        need = ~((cnt >= ak) & (d2[:, ak - 1] <= acc))
+        return need & qmask if qmask is not None else need
+
+    if wide_budget <= 0 or wide_radius <= radius:
+        return (*res, torch.sum(misses(res)).to(torch.int32))
+
+    Q = queries.shape[0]
+    need = misses(res)
+    needi = need.to(torch.int64)
+    rank = torch.cumsum(needi, 0) - needi
+    valid = need & (rank < wide_budget)
+    ar = torch.arange(Q, device=dev)
+    inv = torch.full((wide_budget + Q,), Q, dtype=torch.int64, device=dev)
+    inv[torch.where(valid, rank, wide_budget + ar)] = ar
+    safe = torch.clamp(inv[:wide_budget], max=Q - 1)
+    wide = _knn_window(m, queries[safe], k, wide_radius, use_kernel=use_kernel)
+    r = torch.clamp(rank, max=wide_budget - 1)
+    res = tuple(
+        torch.where(valid.reshape((Q,) + (1,) * (base.dim() - 1)), w[r], base)
+        for base, w in zip(res, wide)
+    )
+    return (*res, torch.sum(misses(res)).to(torch.int32))
 
 
 def knn_cached(

@@ -135,9 +135,9 @@ def knn_window(tab, queries, rows, alive, K: int):
     _build.check(err, "knn_window_launch")
     knn_window.launches += 1
     by_shape = knn_window.launches_by_shape
-    by_shape[Q, V] = by_shape.get((Q, V), 0) + 1
+    by_shape[Q, V, K] = by_shape.get((Q, V, K), 0) + 1
     return out_pts, out_covs, out_d2
 
 
 knn_window.launches = 0
-knn_window.launches_by_shape = {}  # (queries Q, window rows V) -> launches
+knn_window.launches_by_shape = {}  # (queries Q, window rows V, K) -> launches

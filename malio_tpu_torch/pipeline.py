@@ -24,7 +24,7 @@ from . import measurement as meas
 from . import uncertainty as unc
 from .device import resolve_device
 from .filter import esekf
-from .geometry import so3
+from .geometry import s2, so3
 from .map import voxel_hash as vh
 
 
@@ -275,3 +275,84 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
         w_loc=upd.cache.w_loc,
     )
     return new_carry, out
+
+
+def scan_steps(cfg, carry: LioCarry, groups: prop.MeasureGroup, device="cuda"):
+    """`step` over a chunk of K measure groups (fields with a leading K
+    axis): the carry after the last round and a StepOutput whose fields
+    are stacked on a leading K axis, exactly K sequential `step` calls.
+    A whole chunk is the unit a later CUDA-graph capture would take."""
+    dev = resolve_device(device)
+    outs = []
+    for k in range(groups.pts.shape[0]):
+        carry, out = step(cfg, carry, prop.MeasureGroup(*(a[k] for a in groups)), device=dev)
+        outs.append(out)
+    stacked = StepOutput(*(
+        torch.stack(f) if torch.is_tensor(f[0]) else torch.tensor(f, device=dev)
+        for f in zip(*outs)
+    ))
+    return carry, stacked
+
+
+def apply_world_correction(cfg, carry: LioCarry, dq, dt) -> LioCarry:
+    """Apply a world-frame rigid correction T' = dT o T (from the pose-graph
+    back end after a loop closure) to the whole carry, so odometry goes on
+    from the graph-corrected pose:
+
+      * the rotation tangent is right-sided, so rotation blocks keep J = I;
+        pos and vel tangents turn by R(dq);
+      * gravity is a world vector, g' = R(dq) g, carried across the S2
+        chart by J_g = Nx(g') R(dq) Mx(g, 0); extrinsics and biases are
+        body-frame (J = I); P' = J P J^T;
+      * the IMU-rate history moves with the state, its covariances
+        conjugated by blockdiag(R, I);
+      * the map re-hashes through voxel_hash.transform, the local box is
+        re-centred on the corrected pose and the map evicted to it.
+
+    The IEKF warm start Pi is dropped: the information matrix changed
+    frame."""
+    dtype = carry.x.pos.dtype
+    dq = so3.quat_normalize(dq.to(dtype))
+    dt = dt.to(dtype)
+    x = carry.x
+    L = x.ext_r.shape[0]
+    R = so3.quat_to_mat(dq)
+    # a rotation keeps |g|: no projection back onto the default sphere
+    g_new = so3.quat_rotate(dq, x.grav)
+    x2 = x._replace(
+        pos=so3.quat_rotate(dq, x.pos) + dt,
+        rot=so3.quat_normalize(so3.quat_mul(dq, x.rot)),
+        vel=so3.quat_rotate(dq, x.vel),
+        grav=g_new,
+    )
+
+    n = carry.P.shape[0]
+    J = torch.eye(n, dtype=dtype, device=R.device)
+    J[0:3, 0:3] = R
+    ov = st.idx_vel(L)
+    J[ov : ov + 3, ov : ov + 3] = R
+    og = st.idx_grav(L)
+    J[og : og + 2, og : og + 2] = (
+        s2.s2_nx_yy(g_new) @ R @ s2.s2_mx(x.grav, torch.zeros(2, dtype=dtype, device=R.device))
+    )
+    J = J.to(carry.P.dtype)
+    P2 = J @ carry.P @ J.T
+
+    h = carry.hist
+    Rb = torch.zeros((6, 6), dtype=dtype, device=R.device)
+    Rb[:3, :3] = R
+    Rb[3:, 3:] = torch.eye(3, dtype=dtype, device=R.device)
+    h2 = h._replace(
+        q=so3.quat_normalize(so3.quat_mul(dq[None], h.q)),
+        p=so3.quat_rotate(dq[None], h.p) + dt,
+        cov=torch.einsum("ij,njk,lk->nil", Rb, h.cov, Rb),
+    )
+
+    half = torch.tensor(cfg.cube_len / 2.0, dtype=dtype, device=R.device)
+    box_min = x2.pos - half
+    box_max = x2.pos + half
+    map2 = vh.evict_outside(vh.transform(carry.map, dq, dt), box_min, box_max)
+    return carry._replace(
+        x=x2, P=P2, hist=h2, map=map2, box_min=box_min, box_max=box_max,
+        box_init=torch.ones_like(carry.box_init), Pi=torch.zeros_like(carry.Pi),
+    )

@@ -25,6 +25,20 @@ def mul32(a, c: int):
     return ((a * lo) + (((a * hi) & 0xFFFF) << 16)) & MASK32
 
 
+def spatial_hash(keys):
+    """xor of the wrapped products of int32 cell keys (..., 3), taken as
+    uint32: the Teschner spatial hash, as a uint32 value in int64."""
+    k = keys & MASK32
+    return mul32(k[..., 0], _P1) ^ mul32(k[..., 1], _P2) ^ mul32(k[..., 2], _P3)
+
+
+def cell_ids(pts, cell_size, num_cells: int):
+    """Hashed cell of each point among num_cells: the spatial hash of its
+    int32 cell key modulo num_cells. cell_size may be a tensor (true
+    division, as JAX divides)."""
+    return spatial_hash(torch.floor(pts / cell_size).to(torch.int32).to(torch.int64)) % num_cells
+
+
 def floor_div(pts, size: float):
     """floor(pts / size) as int64. Divides by a device tensor: on the card
     a division by a Python scalar multiplies by its reciprocal, which can
@@ -36,8 +50,7 @@ def floor_div(pts, size: float):
 def voxel_downsample(pts, aux, mask, voxel_size: float, out_cap: int):
     """pts (P, 3), aux (P, A), mask (P,) -> (out (out_cap, 3),
     aux_out (out_cap, A), mask_out (out_cap,))."""
-    key = floor_div(pts, voxel_size) & MASK32  # uint32 bits of the int32 key
-    h = mul32(key[:, 0], _P1) ^ mul32(key[:, 1], _P2) ^ mul32(key[:, 2], _P3)
+    h = spatial_hash(floor_div(pts, voxel_size))
     h = torch.where(mask, h, torch.full_like(h, MASK32))
 
     order = torch.argsort(h, stable=True)

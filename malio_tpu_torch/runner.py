@@ -1,7 +1,9 @@
 """Host loop: IMU initialization + sequence replay over `pipeline.step`
 (counterpart of malio_tpu/runner.py; laserMapping.cpp:831-1082). The first
 round is skipped, IMU statistics accumulate until more than 10 samples,
-then the filter is seeded and the fusion step takes over, round by round.
+then the filter is seeded and the fusion step takes over: a chunk at a
+time through `pipeline.scan_steps`, or round by round where observers or
+a callback need every round.
 """
 from __future__ import annotations
 
@@ -98,6 +100,23 @@ def process_noise(cfg, init: ImuInitializer, dtype=torch.float32, device="cuda")
     return torch.as_tensor(np.diag(d), dtype=dtype, device=dev)
 
 
+def seed_carry(cfg, init: ImuInitializer, prev_last_imu, base0: float, dtype, device):
+    """The first fused round's carry once the IMU statistics are done:
+    state, covariance and process noise from them, and the last IMU
+    sample before that round with its stamp moved onto the round's time
+    origin base0 (times are rebased per group)."""
+    x0 = initial_state(cfg, init, dtype, device)
+    P0 = initial_covariance(cfg, dtype, device)
+    Q = process_noise(cfg, init, dtype, device)
+    carry = pipeline.init_carry(cfg, x0, P0, Q, dtype, device)
+    last_imu = torch.as_tensor(np.asarray(prev_last_imu, np.float64), dtype=dtype, device=device)
+    last_imu[0] += torch.tensor(-base0, dtype=dtype, device=device)
+    return carry._replace(
+        mean_acc_norm=torch.tensor(np.linalg.norm(init.mean_acc), dtype=dtype, device=device),
+        last_imu=last_imu,
+    )
+
+
 def group_base(g):
     """Per-group time base (f64): the earliest scan begin."""
     return float(np.min(np.asarray(g["beg_t"], np.float64)))
@@ -138,11 +157,18 @@ _SMALL = ("pos", "quat", "pose_cov", "end_time", "iterations", "n_effective",
 
 
 def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda",
-                 callback=None, prefetch_chunk: int = 16):
-    """Replay measure groups through the pipeline, one `step` per round.
-    Returns a dict with the trajectory (t, pos, quat), per-round
-    diagnostics and the final carry. `callback(carry, out, t_base)` runs
-    after every round."""
+                 callback=None, smoother=None, posegraph=None, prefetch_chunk: int = 16):
+    """Replay measure groups through the pipeline. Returns a dict with the
+    trajectory (t, pos, quat), per-round diagnostics and the final carry.
+
+    With no hooks a full chunk of `prefetch_chunk` rounds runs through
+    `pipeline.scan_steps`; hooks and the partial last chunk go round by
+    round. `callback(carry, out, t_base)` runs after every round.
+    `smoother` and `posegraph` are observers (WindowSmoother,
+    PoseGraphBackend): `observe(out, t_base)` every round, `trajectory()`
+    at the end (keys "smoothed" and "graph"). A correction the posegraph
+    stages (`take_correction()`, after a loop closure) re-anchors the
+    carry through `pipeline.apply_world_correction`."""
     dev = pipeline.resolve_device(device)
     groups = list(groups)
     init = ImuInitializer()
@@ -160,46 +186,55 @@ def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda"
         prev_last_imu = last_imu_seed
         last_imu_seed = _track_last_imu(g)
         if gi > 0 and init.done:
-            x0 = initial_state(cfg, init, dtype, dev)
-            P0 = initial_covariance(cfg, dtype, dev)
-            Q = process_noise(cfg, init, dtype, dev)
-            carry = pipeline.init_carry(cfg, x0, P0, Q, dtype, dev)
-            # times are rebased per group: move the carried last-IMU stamp
-            # onto the first fused group's origin
-            last_imu = torch.as_tensor(np.asarray(prev_last_imu, np.float64), dtype=dtype, device=dev)
-            last_imu[0] += torch.tensor(-group_base(groups[gi]), dtype=dtype, device=dev)
-            carry = carry._replace(
-                mean_acc_norm=torch.tensor(np.linalg.norm(init.mean_acc), dtype=dtype, device=dev),
-                last_imu=last_imu,
-            )
+            carry = seed_carry(cfg, init, prev_last_imu, group_base(groups[gi]), dtype, dev)
             start = gi
             break
         init.update(np.asarray(g["imu"], np.float64), g["imu_mask"])
 
+    def observed():
+        return dict(smoothed=smoother.trajectory() if smoother is not None else None,
+                    graph=posegraph.trajectory() if posegraph is not None else None)
+
     if carry is None:
         return dict(t=np.zeros(0), pos=np.zeros((0, 3)), quat=np.zeros((0, 4)),
                     iterations=np.zeros(0, int), n_effective=np.zeros(0, int),
-                    map_size=np.zeros(0, int), carry=None)
+                    map_size=np.zeros(0, int), carry=None, **observed())
 
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     outs = []
     prev_base = group_base(groups[start])
+    use_scan = callback is None and smoother is None and posegraph is None
     for c0 in range(start, len(groups), prefetch_chunk):
         chunk = groups[c0 : c0 + prefetch_chunk]
         gdev, bases = _stack_chunk(chunk, np_dtype, prev_base, dev)
         prev_base = float(bases[-1])
         chunk_outs = []
-        for k in range(len(chunk)):
+        if use_scan and len(chunk) == prefetch_chunk:
+            carry, stacked = pipeline.scan_steps(cfg, carry, gdev, device=dev)
+            for k in range(len(chunk)):
+                chunk_outs.append(({f: getattr(stacked, f)[k] for f in _SMALL}, float(bases[k])))
+        for k in range(len(chunk_outs), len(chunk)):
             group = prop.MeasureGroup(*(a[k] for a in gdev))
             carry, out = pipeline.step(cfg, carry, group, device=dev)
             chunk_outs.append(({f: getattr(out, f) for f in _SMALL}, float(bases[k])))
+            if smoother is not None:
+                smoother.observe(out, t_base=float(bases[k]))
+            if posegraph is not None:
+                posegraph.observe(out, t_base=float(bases[k]))
+                corr = posegraph.take_correction() if hasattr(posegraph, "take_correction") else None
+                if corr is not None:
+                    # loop closure: re-anchor state, P, history, map and
+                    # box onto the graph-corrected frame
+                    dq, dtv = (torch.as_tensor(np.asarray(c), dtype=dtype, device=dev)
+                               for c in corr)
+                    carry = pipeline.apply_world_correction(cfg, carry, dq, dtv)
             if callback is not None:
                 callback(carry, out, float(bases[k]))
         # one host transfer per chunk (keeps per-round point clouds off
         # the host and lets the device run ahead within a chunk)
         for o, b in chunk_outs:
             rec = {f: (o[f].cpu().numpy() if torch.is_tensor(o[f]) else np.asarray(o[f])) for f in _SMALL}
-            rec["end_time"] = rec["end_time"] + b
+            rec["end_time"] = float(rec["end_time"]) + b  # absolute time in f64
             outs.append(rec)
 
     def col(f, dt=None):
@@ -210,5 +245,5 @@ def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda"
         iterations=col("iterations", int), n_effective=col("n_effective", int),
         map_size=col("map_size", int), map_dropped=col("map_dropped", int),
         nn_miss=col("nn_miss", int), n_meas_dropped=col("n_meas_dropped", int),
-        carry=carry,
+        carry=carry, **observed(),
     )

@@ -10,7 +10,9 @@ of two LiDARs, 1 to 32 LiDARs, splines with no and with one valid
 interval, times exactly on the control grid and NaN times, and 3 x 65,536
 points; the layout the wrapper picks by point count; its refusals. k-NN is bit-equal; deskew
 agrees within atol 2e-5 with equal ok flags (rotation matrices in the
-kernel, quaternions in the plain version).
+kernel, quaternions in the plain version). `vh.knn` at K = 5 through the
+kernel equals it through the plain version; the back end's per-cell sums
+are the same bits on every call.
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from malio_tpu_torch import ba, posegraph
 from malio_tpu_torch import spline as spl
 from malio_tpu_torch.geometry import se3, so3
 from malio_tpu_torch.map import voxel_hash as vh
@@ -117,10 +120,59 @@ def test_knn_cached_kernel_equals_plain_on_the_card(card):
     got = vh.knn_cached(m, qs, use_kernel=True, **kw)
     want = vh.knn_cached(m, qs, use_kernel=False, **kw)
     after = knn.knn_window.launches_by_shape
-    assert after.get((800, 8), 0) == before.get((800, 8), 0) + 1, after
+    assert after.get((800, 8, 16), 0) == before.get((800, 8, 16), 0) + 1, after
     assert sum(after.values()) == sum(before.values()) + 2, after
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_vh_knn_kernel_equals_plain_at_k5(card, monkeypatch):
+    """vh.knn (K = 5, base window and budgeted wide escalation) runs the
+    fused kernel on an f32 map on the card; with the wrapper's plain
+    version in its place the results are the same bits."""
+    rng = np.random.default_rng(4)
+    pts = torch.as_tensor(rng.uniform(-8, 8, size=(3000, 3)).astype(np.float32), device=card)
+    covs = torch.as_tensor(rng.uniform(0.01, 0.2, size=3000).astype(np.float32), device=card)
+    m = vh.insert(vh.create(1 << 14, 0.5, torch.float32, card), pts, covs,
+                  torch.ones(3000, dtype=torch.bool, device=card))
+    # past the map's edge: the base window misses, the wide one finds some
+    far = torch.as_tensor(rng.uniform(8.3, 10.0, size=(300, 3)).astype(np.float32), device=card)
+    qs = torch.cat([pts[:500] + 0.1, far])
+    kw = dict(k=5, radius=1, wide_radius=5, wide_budget=512)
+    before = dict(knn.knn_window.launches_by_shape)
+    got = vh.knn(m, qs, **kw)
+    after = knn.knn_window.launches_by_shape
+    assert after.get((800, 8, 5), 0) == before.get((800, 8, 5), 0) + 1, after
+    assert after.get((512, 208, 5), 0) == before.get((512, 208, 5), 0) + 1, after
+    monkeypatch.setattr(knn, "knn_window", knn.knn_window_plain)
+    want = vh.knn(m, qs, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[4]) < int(vh.knn(m, qs, k=5)[4])  # escalation recovered misses
+
+
+def test_back_end_sums_are_the_same_bits_on_every_call(card):
+    """The BA window cost and the ICP plane model sum per cell in a fixed
+    order (segment.segment_sum), so two calls give the same bits; with
+    index_add_ the atomics would add in a run-dependent order."""
+    rng = np.random.default_rng(5)
+    W, P = 8, 2048
+    f64 = dict(dtype=torch.float64, device=card)
+    win = ba.KeyframeWindow(
+        q=torch.tensor([[1.0, 0, 0, 0]], **f64).repeat(W, 1),
+        t=torch.as_tensor(rng.normal(size=(W, 3)) * 0.3, **f64),
+        pts=torch.as_tensor(rng.uniform(-6, 6, size=(W, P, 3)) * [1, 1, 0.05], **f64),
+        mask=torch.ones((W, P), dtype=torch.bool, device=card),
+        valid=torch.ones((W,), dtype=torch.bool, device=card))
+    dx = torch.as_tensor(rng.normal(size=(W, 6)) * 0.01, **f64)
+    cs = torch.tensor(1.0, **f64)
+    cost = [ba._window_cost(dx, win, cs, 16384, 6) for _ in range(2)]
+    assert torch.equal(cost[0], cost[1]) and float(cost[0]) > 0
+    cloud = win.pts[0] + torch.as_tensor(rng.normal(size=(P, 3)) * 0.01, **f64)
+    models = [posegraph._plane_model(cloud, win.mask[0], cs, 8192, 4) for _ in range(2)]
+    for a, b in zip(*models):
+        assert torch.equal(a[models[0][2]], b[models[0][2]])
+    assert bool(models[0][2].any())
 
 
 def _spline(n_ctrl, dev, cap=64, start=0.37):

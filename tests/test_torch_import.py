@@ -32,6 +32,9 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     files = sorted((ROOT / "malio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for mod in ("online", "checkpoint", "ba", "smoother", "posegraph", "segment"):
+        assert f"malio_tpu_torch/{mod}.py" in names, mod
     bad = [str(f.relative_to(ROOT)) for f in files if FORBIDDEN.search(f.read_text())]
     assert not bad, bad
 

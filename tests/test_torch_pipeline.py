@@ -8,6 +8,7 @@ exact, the map table after the first insert exact); and the port's
 """
 import dataclasses
 import pathlib
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +21,9 @@ from malio_tpu import runner as jrunner
 from malio_tpu.config import Config as JConfig, city_config as jcity
 
 import malio_tpu_torch  # noqa: F401
+from malio_tpu_torch import checkpoint as tckpt, online as tonline, posegraph as tpg
 from malio_tpu_torch import interop, pipeline as tpipe, propagate as tprop, runner as trunner
-from malio_tpu_torch import state as tst
+from malio_tpu_torch import smoother as tsm, state as tst
 from malio_tpu_torch.filter import dynamics as tdyn
 from malio_tpu_torch.map import voxel_hash as tvh
 from malio_tpu_torch.config import Config as TConfig
@@ -128,8 +130,20 @@ def test_three_city_rounds_match_jax():
 
 _MAP = dict(tab=np.zeros((1, 32, 5), np.float32), voxel_size=np.float32(0.5),
             n_dropped=np.int32(0), n_evicted=np.int32(0))
+
+
+def _load_map(**kw):
+    """checkpoint.load into a template made as a caller makes it: the
+    state lands on the template's device."""
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "map.npz"
+        tckpt.save(path, interop.map_from_numpy(_MAP, device="cpu"))
+        return tckpt.load(path, interop.map_from_numpy(_MAP, **kw))
+
+
 # entry points and public constructors, each called as fn(**kw) with the
-# device left at its default, and a tensor of what it returns
+# device left at its default, and a tensor (or the device) of what it
+# returns; None where running it on the CPU is a test of its own
 _ON_THE_CARD = {
     "run_sequence": (lambda **kw: trunner.run_sequence(port_config(_city_small()), [], **kw),
                      None),
@@ -141,6 +155,14 @@ _ON_THE_CARD = {
     "state.identity_state": (lambda **kw: tst.identity_state(3, **kw), lambda r: r.ext_r),
     "dynamics.process_noise_matrix": (
         lambda **kw: tdyn.process_noise_matrix(0.1, 0.2, 0.3, 0.4, **kw), lambda r: r),
+    "pipeline.scan_steps": (lambda **kw: tpipe.scan_steps(None, None, None, **kw), None),
+    "OnlineEstimator": (lambda **kw: tonline.OnlineEstimator(port_config(_city_small()), **kw),
+                        lambda r: r.device),
+    "WindowSmoother": (lambda **kw: tsm.WindowSmoother(max_points=8, num_cells=64, **kw),
+                       lambda r: r.win.q),
+    "PoseGraphBackend": (lambda **kw: tpg.PoseGraphBackend(capacity=4, cloud_points=8, **kw),
+                         lambda r: r._edge_sets()[0].zq),
+    "checkpoint.load": (_load_map, lambda r: r.tab),
 }
 
 
@@ -154,7 +176,8 @@ def test_entry_points_require_a_card_unless_cpu(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(device="cuda")
     if tensor_of is not None:
-        assert tensor_of(fn(device="cpu")).device.type == "cpu"
+        out = tensor_of(fn(device="cpu"))
+        assert (out if isinstance(out, torch.device) else out.device).type == "cpu"
 
 
 def _golden_cfg():
