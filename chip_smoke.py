@@ -35,8 +35,14 @@ ATE within 1.1 x odometry ATE + 0.01 m, no drops, and the times of every
 relax(), optimize_window() and apply_world_correction(); one
 optimize_sparse at 2048 keyframes; and voxel_hash.knn at K = 5 through the
 kernel bit-equal to its plain route, with the kernel's K = 5 shapes
-checked and timed. Any failure exits non-zero; the last line is the
-device summary.
+checked and timed. Last the batched cell: batched.flagship_benchmark at
+B = 16 (6 s, seeds 0-15) and at B = 1 (8 s), aggregate scans/s per pass,
+every sequence's ATE and drops, three sequences against their own runs
+(1e-3 m), a profile of 5 steady batched rounds at B = 16 (its launches
+against the main path's profile, the same round at B = 1), and both
+kernels checked and timed at the batched shapes (the k-NN over 16
+maps as one flat table, the deskew at 16 x 3 x 4096). Any failure exits
+non-zero; the last line is the device summary.
 
     python3 chip_smoke.py                               # the smoke run
     python3 chip_smoke.py --save-stage-inputs FILE      # ... keeping the map, the
@@ -65,7 +71,7 @@ sys.path.insert(0, str(ROOT))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 ATE_GATE_M = 0.05
-PLAIN_ROUNDS = 20
+PLAIN_ROUNDS = 12
 PLAIN_TOL_M = 0.01
 ROW_BYTES = 32 * 5 * 4  # one hash-table row: 32 slots of [fp, x, y, z, cov] f32
 # f32 operations per point of csrc/deskew.cu, counted from its source:
@@ -91,7 +97,23 @@ BACKEND_CAPACITY = 64
 # passed the quality gate in a CPU rehearsal of this cell
 BACKEND_ICP = dict(cell_size=2.0, icp_min_pts=3, min_quality=0.05)
 SOLVER_K = 2048  # one optimize_sparse at the default capacity
-TRACE_LEAD_IN_S = 0.02  # host time between a profiler session's start and its first call
+# the batched cell: B flagship sequences (seeds 0 .. B-1) in lockstep through
+# batched.flagship_benchmark, and the same at B = 1 with bench.py's settings
+BATCH = 16
+BATCH_SECONDS = 6.0
+BATCH_B1_SECONDS = 8.0
+BATCH_PASSES = 3
+BATCH_CHUNK = 8
+BATCH_CHECK = (0, 7, 15)  # sequences of the B = 16 run held against their own runs,
+BATCH_CHECK_ROUNDS = 24  # over their first 24 rounds (all 48 would take ~1 min more)
+BATCH_TOL_M = 1e-3
+BATCH_PROFILE_SECONDS = 2.0  # rounds enough for the profile's 8 + 5
+TRACE_LEAD_IN_S = 0.1  # host time between a profiler session's start and its first call
+# device work a session may drop before its first marker: on an H100 with
+# torch 2.11 the first four device events of a session (three warm-up
+# calls and the first marker) went missing in five traces in a row after a
+# 20 ms lead-in
+LEAD_IN_ADDS = 16
 TRACE_ATTEMPTS = 5
 TRACES = []  # one entry per profiler trace: calls (or rounds), events, markers found
 # max |deskew kernel - plain| for coordinates under 64 m (about 5 ulp of
@@ -123,14 +145,17 @@ def call_ms(fn, n=100, warm=3):
 
 def _trace(fn, n, warm):
     """Device activities of one torch.profiler session, in start order:
-    warm-up calls, then n calls with a marker kernel before each and
-    after the last."""
+    LEAD_IN_ADDS one-element adds the session may drop, warm-up calls,
+    then n calls with a marker kernel before each and after the last."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    x = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACE_LEAD_IN_S)
+        for _ in range(LEAD_IN_ADDS):
+            x.add_(1.0)
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
@@ -264,20 +289,33 @@ def check_window(name, args, K):
     return err, stats
 
 
+def _live(queries, qmask):
+    """The live queries of one sequence (n, 3), or of each sequence of a
+    batch (B, n, 3) cut to the smallest live count."""
+    import torch
+
+    if queries.dim() == 2:
+        return queries[qmask].contiguous()
+    n = int(qmask.sum(-1).min())
+    return torch.stack([q[k][:n] for q, k in zip(queries, qmask)])
+
+
 def knn_phase(m, queries, qmask, cfg, K, suffix=""):
     """The fused k-NN window kernel at the path's shapes, on the map the
-    main path built and one of its rounds' queries: the base window over
-    every measurement lane, and the wide window over the first live
-    queries at the path's tier (256) and at the full budget."""
+    path built and one of its rounds' queries: the base window over every
+    measurement lane, and the wide window over the first live queries at
+    the path's tier (256) and at the full budget. A batch of maps (B, R,
+    32, 5) and queries (B, Q, 3) goes to the kernel as the batched path
+    sends it: one flat (B R) table, rows offset by b R, B Q queries."""
     import torch
     from malio_tpu_torch.map import voxel_hash as vh
     from malio_tpu_torch.ops import knn
 
-    live = queries[qmask].contiguous()
+    live = _live(queries, qmask)
     shapes = [
         ("knn_window", queries, cfg.knn_radius, qmask),
-        ("knn_window_wide", live[:256], cfg.knn_wide_radius, None),
-        ("knn_window_wide_budget", live[: cfg.knn_wide_budget], cfg.knn_wide_radius, None),
+        ("knn_window_wide", live[..., :256, :], cfg.knn_wide_radius, None),
+        ("knn_window_wide_budget", live[..., : cfg.knn_wide_budget, :], cfg.knn_wide_radius, None),
     ]
     big = torch.finfo(torch.float32).max
     rows_out = []
@@ -285,8 +323,11 @@ def knn_phase(m, queries, qmask, cfg, K, suffix=""):
         name += suffix
         q = q.contiguous()
         b, alive = vh._window_rows(m, q, radius, mask)
-        args = (m.tab, q, b, alive)
-        Q, V = b.shape
+        tab, b = vh._batch_rows(m, b)
+        V = b.shape[-1]
+        b, alive, q = b.reshape(-1, V), alive.reshape(-1, V), q.reshape(-1, 3)
+        args = (tab, q, b, alive)
+        Q = b.shape[0]
         err, stats = check_window(name, args, K)
         err_e, stats_e = check_window(name + " (edge cases)", edge_windows(*args), K)
         for key in ("exhausted_slots", "empty_windows", "ties"):
@@ -298,7 +339,7 @@ def knn_phase(m, queries, qmask, cfg, K, suffix=""):
         p_call = call_ms(lambda: knn.knn_window_plain(*args, K), n=10)
 
         # library yardstick: torch.topk + gather on the precomputed masked d2
-        win = m.tab[b]
+        win = tab[b]
         occ = ((win[..., 0] != 0) & alive[..., None]).reshape(Q, V * 32)
         cpts = win[..., 1:4].reshape(Q, V * 32, 3).contiguous()
         ccov = torch.where(occ, win[..., 4].reshape(Q, V * 32), 0.0)
@@ -313,7 +354,7 @@ def knn_phase(m, queries, qmask, cfg, K, suffix=""):
         l_call = call_ms(library, n=30)
         del d2, cpts, ccov
         touched = int(torch.unique(torch.cat([b[alive], b[:, 0]])).numel())
-        n_lanes = int((m.tab[..., 0] != 0).sum(1)[b][alive].sum())
+        n_lanes = int((tab[..., 0] != 0).sum(1)[b][alive].sum())
         nbytes = touched * ROW_BYTES + Q * 12 + Q * V * 9 + Q * K * 20
         b_ms, b_by = bound(nbytes, n_lanes * KNN_OPS_PER_LANE)
         rows_out.append(dict(
@@ -353,6 +394,27 @@ def deskew_inputs(L, N, C, seed):
             so3.exp_so3(small(0.1)), small(1.0))
 
 
+def batch_args(args):
+    """deskew_points arguments with the leading batch axis (one sequence
+    becomes a batch of one)."""
+    from malio_tpu_torch import tree
+
+    return args if args[0].dim() == 4 else tree.unsqueeze(tuple(args))
+
+
+def deskew_inputs_batch(B, L, N, C, seed):
+    """B sequences of deskew_inputs, each with its own points, frames and
+    spline (its time origin moved by 3 ms a sequence), stacked."""
+    import torch
+    from malio_tpu_torch import tree
+
+    seqs = []
+    for b in range(B):
+        pts, sp, *frames = deskew_inputs(L, N, C, seed + b)
+        seqs.append((pts, sp._replace(t0=sp.t0 + 0.003 * b), *frames))
+    return tuple(a.contiguous() if torch.is_tensor(a) else a for a in tree.stack(seqs))
+
+
 def recentred(args):
     """deskew_points arguments with the world origin moved to LiDAR 0's
     scan-end position. The deskew sees world positions only relative to
@@ -360,11 +422,11 @@ def recentred(args):
     of the points and the trajectory's excursion, not of where the map
     happens to sit (the plain version composes the spline in world
     coordinates, the kernel relative to the scan-end position)."""
-    pts, sp, ext_q, ext_t, lt_q, lt_t = args
-    o = lt_t[0].clone()
+    pts, sp, ext_q, ext_t, lt_q, lt_t = batch_args(args)
+    o = lt_t[:, 0].clone()  # each sequence's own origin
     cps = sp.cps.clone()
-    cps[:, :3, 3] -= o
-    return (pts, sp._replace(cps=cps), ext_q, ext_t, lt_q, (lt_t - o).contiguous())
+    cps[..., :3, 3] -= o[:, None]
+    return (pts, sp._replace(cps=cps), ext_q, ext_t, lt_q, (lt_t - o[:, None]).contiguous())
 
 
 def deskew_atol(args):
@@ -375,7 +437,7 @@ def deskew_atol(args):
     import math
 
     pts, sp, _, ext_t = args[:4]
-    scale = float(pts[..., :3].abs().max() + sp.cps[:, :3, 3].abs().max() + ext_t.abs().max())
+    scale = float(pts[..., :3].abs().max() + sp.cps[..., :3, 3].abs().max() + ext_t.abs().max())
     return DESKEW_ATOL * 2.0 ** max(0, math.floor(math.log2(max(scale, 1.0))) - 5)
 
 
@@ -399,6 +461,7 @@ def deskew_check(args, lanes=None):
     result."""
     from malio_tpu_torch.ops import deskew
 
+    args = batch_args(args)
     fn = deskew.deskew_points if lanes is None else (
         lambda *a: deskew._launch(*a, lanes=lanes))
     same_ok, err, atol, want = deskew_err(deskew, args, fn)
@@ -411,7 +474,8 @@ def deskew_check(args, lanes=None):
 
 
 def deskew_phase(name, args, floor):
-    """The deskew kernel on args (L, N points, C control points): checked
+    """The deskew kernel on args (B sequences of L LiDARs x N points, C
+    control points; one sequence without B): checked
     against its plain version and timed alone on the device, per wrapper
     call, and in both of its layouts (three lanes a point with the spline
     read through the read-only cache, one lane with it staged in shared
@@ -419,8 +483,9 @@ def deskew_phase(name, args, floor):
     import torch
     from malio_tpu_torch.ops import deskew
 
+    args = batch_args(args)
     pts, sp = args[0], args[1]
-    L, N, C = pts.shape[0], pts.shape[1], sp.cps.shape[0]
+    B, L, N, C = *pts.shape[:3], sp.cps.shape[1]
     err, atol, want = deskew_check(args)
     ms = kernel_ms(lambda: deskew.deskew_points(*args), "deskew_kernel")
     c_ms = call_ms(lambda: deskew.deskew_points(*args))
@@ -437,20 +502,21 @@ def deskew_phase(name, args, floor):
     none_ok = (pts, sp._replace(num_valid=torch.full_like(sp.num_valid, 3))) + tuple(args[2:])
     empty_ms = kernel_ms(lambda: deskew.deskew_points(*none_ok), "deskew_kernel")
     n_ok = int(want[..., 3].sum())
-    nbytes = L * N * 32 + C * (16 + 6) * 4 + L * 14 * 4 + 8  # points in+out, spline, frames
-    nops = n_ok * DESKEW_OPS_PER_POINT + (L * N - n_ok) * DESKEW_OPS_OUTSIDE
+    # points in+out, splines, frames
+    nbytes = B * (L * N * 32 + C * (16 + 6) * 4 + L * 14 * 4 + 8)
+    nops = n_ok * DESKEW_OPS_PER_POINT + (B * L * N - n_ok) * DESKEW_OPS_OUTSIDE
     b_ms, b_by = bound(nbytes, nops)
-    lanes = deskew.lanes_for(L * N)
-    log(f"kernel {name} L={L} N={N} C={C} (lanes={lanes}): max |kernel - plain| {err:.3g} "
-        f"(atol {atol:.3g}), ok flags equal ({n_ok}/{L * N} inside); device {ms:.5f} ms, "
+    lanes = deskew.lanes_for(B * L * N)
+    log(f"kernel {name} B={B} L={L} N={N} C={C} (lanes={lanes}): max |kernel - plain| {err:.3g} "
+        f"(atol {atol:.3g}), ok flags equal ({n_ok}/{B * L * N} inside); device {ms:.5f} ms, "
         f"call {c_ms:.4f} ms (plain device {p_ms:.4f} ms in {p_ops:.0f} device ops, call "
         f"{p_call:.4f} ms); bound {b_ms:.6f} ms by {b_by}, {b_ms + floor:.6f} ms with the launch "
         f"floor; no point inside the window {empty_ms:.5f} ms; layouts "
         + ", ".join(f"{k} {v['ms']:.5f} ms" for k, v in layouts.items()))
     return dict(
         name=name, route="cuda", source="malio_tpu_torch/csrc/deskew.cu",
-        replaces="malio_tpu/ops/deskew_pallas.py:197", shape=f"L={L} N={N} C={C}",
-        shape_key=(L, N, C), lanes=lanes,
+        replaces="malio_tpu/ops/deskew_pallas.py:197", shape=f"B={B} L={L} N={N} C={C}",
+        shape_key=(B, L, N, C), lanes=lanes,
         max_abs_err=max([err] + [v["max_abs_err"] for v in layouts.values()]), atol=atol, ms=ms,
         call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call, plain_device_ops=p_ops,
         bound_ms=b_ms, bound_by=b_by, bound_with_floor_ms=b_ms + floor, bytes=nbytes, ops=nops,
@@ -461,33 +527,27 @@ def deskew_phase(name, args, floor):
 
 # one LiDAR, the Config default's 96-entry spline: point counts on both
 # sides of the layouts' crossover (65,536 is the Config default)
-SWEEP_POINTS = (12288, 24576, 36864, 49152, 65536, 81920, 98304, 131072, 196608)
+SWEEP_POINTS = (12288, 24576, 36864, 49152, 65536, 196608)  # 196,608: 16 x 3 x 4096
 
 
 def deskew_layout_sweep():
     """Device time of each kernel layout over SWEEP_POINTS, on seeded
-    inputs with the times in random order (as `deskew_inputs` draws them)
-    and sorted (as a scan delivers them, so a warp's points share their
-    interval): where three lanes a point stop paying."""
-    import torch
+    inputs with the times in random order (as `deskew_inputs` draws them):
+    where three lanes a point stop paying."""
     from malio_tpu_torch.config import Config
     from malio_tpu_torch.ops import deskew
 
     out = []
     for n in SWEEP_POINTS:
-        for order in ("random", "sorted"):
-            args = deskew_inputs(1, n, Config.spline_capacity, seed=1)
-            if order == "sorted":
-                pts = args[0]
-                args = (pts[:, torch.argsort(pts[0, :, 3])].contiguous(),) + args[1:]
-            row = dict(points=n, times=order, default_lanes=deskew.lanes_for(n))
-            for lanes in (1, 3):
-                deskew_check(args, lanes=lanes)
-                row[f"lanes={lanes}"] = kernel_ms(
-                    lambda: deskew._launch(*args, lanes=lanes), "deskew_kernel")
-            out.append(row)
-            log(f"deskew layouts, {n} points, {order} times: one lane {row['lanes=1']:.5f} ms, "
-                f"three lanes {row['lanes=3']:.5f} ms (wrapper: {row['default_lanes']})")
+        args = batch_args(deskew_inputs(1, n, Config.spline_capacity, seed=1))
+        row = dict(points=n, times="random", default_lanes=deskew.lanes_for(n))
+        for lanes in (1, 3):
+            deskew_check(args, lanes=lanes)
+            row[f"lanes={lanes}"] = kernel_ms(
+                lambda: deskew._launch(*args, lanes=lanes), "deskew_kernel")
+        out.append(row)
+        log(f"deskew layouts, {n} points, random times: one lane {row['lanes=1']:.5f} ms, "
+            f"three lanes {row['lanes=3']:.5f} ms (wrapper: {row['default_lanes']})")
     return out
 
 
@@ -570,10 +630,11 @@ def deskew_kernel_main(tree, inputs, outputs):
     kept = torch.load(first, map_location="cuda") if first and first.exists() else None
     results = {}
     for name, args in cases.items():
+        args = batch_args(args)
         fn = lambda a=args: deskew.deskew_points(*a)
         results[name] = got = fn()
         same_ok, err, atol, _ = deskew_err(deskew, args, deskew.deskew_points)
-        row = dict(shape=f"L={args[0].shape[0]} N={args[0].shape[1]} C={args[1].cps.shape[0]}",
+        row = dict(shape="B={} L={} N={} C={}".format(*args[0].shape[:3], args[1].cps.shape[1]),
                    ms=kernel_ms(fn, "deskew_kernel"), call_ms=call_ms(fn),
                    max_abs_err=err, atol=atol, ok_flags_equal=same_ok)
         if kept is not None:
@@ -624,8 +685,10 @@ def trace_check_main(seconds, lead_in_s):
     return 0
 
 
-def _profile_rounds(cfg, groups, n_init, skip, active):
-    """One traced replay: rounds `skip` .. `skip + active - 1` inside a
+def _profile_rounds(drive, skip, active):
+    """One traced replay, `drive(tick, rounds)` running `rounds` rounds and
+    calling tick(carry, out, base) after each: rounds `skip` .. `skip +
+    active - 1` inside a
     torch.profiler session that starts TRACE_LEAD_IN_S and one untraced
     round before them, with a marker kernel at the start of each traced
     round and after the last.
@@ -635,7 +698,6 @@ def _profile_rounds(cfg, groups, n_init, skip, active):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from malio_tpu_torch import runner
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     done, stamps = [], {}
@@ -661,8 +723,7 @@ def _profile_rounds(cfg, groups, n_init, skip, active):
                 time.sleep(TRACE_LEAD_IN_S)  # the same margin at the end
                 prof.stop()
 
-    runner.run_sequence(cfg, groups[: n_init + skip + active], dtype=torch.float32,
-                        device="cuda", callback=tick)
+    drive(tick, skip + active)
     events = prof.events()
     dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)),
@@ -675,9 +736,22 @@ def _profile_rounds(cfg, groups, n_init, skip, active):
             len(dev), edges)
 
 
-def profile_phase(cfg, groups, n_init, round_ms, skip=8, active=5):
-    """Where a steady round's time goes: `active` rounds after `skip`
-    traced with torch.profiler (kernels on). Returns the device busy time
+def run_rounds(cfg, groups, n_init):
+    """Rounds for profile_phase: the main path's replay (run_sequence)."""
+    import torch
+    from malio_tpu_torch import runner
+
+    def drive(tick, rounds):
+        runner.run_sequence(cfg, groups[: n_init + rounds], dtype=torch.float32, device="cuda",
+                            callback=tick)
+
+    return drive
+
+
+def profile_phase(drive, round_ms, skip=8, active=5, label="profile"):
+    """Where a steady round's time goes: `active` rounds after `skip` of
+    `drive` (see _profile_rounds) traced with torch.profiler (kernels on).
+    Returns the device busy time
     per round (the sum of the kernels' and copies' device intervals, one
     stream), the device's idle share against `round_ms` (the steady round
     time measured without the profiler, which slows the host), launches
@@ -691,7 +765,7 @@ def profile_phase(cfg, groups, n_init, round_ms, skip=8, active=5):
     retake is logged and counted."""
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         events, dev, marks, per_round, traced_ms, n_all, edges = _profile_rounds(
-            cfg, groups, n_init, skip, active)
+            drive, skip, active)
         ok = len(marks) == active + 1 and min(per_round) > 0
         TRACES.append(dict(kind="profile", calls=active, device_events=n_all,
                            markers=len(marks), events_per_call=per_round,
@@ -718,7 +792,7 @@ def profile_phase(cfg, groups, n_init, round_ms, skip=8, active=5):
                launches_per_round=launches, device_ops_per_round=len(dev) / active,
                knn_window_ms_per_round=knn_ms, deskew_ms_per_round=desk_ms,
                retakes=attempt - 1, top_device_ms_per_round=top)
-    log(f"profile, {active} steady rounds (trace {attempt}, all {len(marks)} markers): device "
+    log(f"{label}, {active} steady rounds (trace {attempt}, all {len(marks)} markers): device "
         f"busy {busy_ms:.2f} ms/round of a {round_ms:.1f} ms round (idle share "
         f"{out['device_idle_share']:.3f}; {traced_ms:.1f} ms/round while traced), {launches:.0f} "
         f"kernel launches/round; fused k-NN kernel {knn_ms:.4f} ms/round, deskew "
@@ -1078,6 +1152,144 @@ def solver_phase(K=SOLVER_K, dev="cuda"):
     return out
 
 
+def batched_drive(cfg, seqs, record=None):
+    """Rounds for profile_phase over len(seqs) sequences in lockstep: one
+    batched round (pipeline.scan_steps over a (1, B) group) at a time.
+    `record` receives the last carry and every round's IEKF iterations."""
+    import torch
+    from malio_tpu_torch import batched, pipeline
+
+    carry0, chunks, _ = batched._prepare(cfg, seqs, torch.float32, 1, "cuda")
+
+    def drive(tick, rounds):
+        c, iters = carry0, []
+        for k in range(rounds):
+            c, out = pipeline.scan_steps(cfg, c, chunks[k][0], device="cuda")
+            tick(c, out, None)
+            iters.append(out.iterations[0])
+        if record is not None:
+            record.update(carry=c, iterations=torch.stack(iters).cpu().numpy())
+
+    return drive
+
+
+def batched_phase(floor, smi, main_profile):
+    """The batched cell: batched.flagship_benchmark at B = BATCH (6 s) and
+    at B = 1 (8 s, bench.py's settings), each with the launch counts set
+    to 0 just before and read just after; ATE, drops and throughput per
+    pass; three sequences of the batch against their own runs; a profile
+    of 5 steady batched rounds at B = BATCH (launches, device busy time
+    and idle share, kernel time per round, IEKF iterations), its launches
+    set against `main_profile`'s, the same round at B = 1; and both
+    kernels checked and timed at the batched shapes. Returns (report,
+    launch counts by path, kernel rows)."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import batched
+    from malio_tpu_torch import measurement as meas
+    from malio_tpu_torch.io.assemble import assemble_groups
+    from malio_tpu_torch.map import voxel_hash as vh
+
+    cfg = batched._flagship_config(4096, 1 << 21, False)
+    kw = dict(points_per_lidar=4096, passes=BATCH_PASSES, chunk=BATCH_CHUNK)
+    out, paths, sinks = {}, {}, {}
+    for label, B, secs in (("batched_b1", 1, BATCH_B1_SECONDS), ("batched", BATCH, BATCH_SECONDS)):
+        sinks[label] = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        r = batched.flagship_benchmark(batch=B, duration=secs, sink=sinks[label], **kw)
+        _sync()
+        paths[label] = read_launches(label)
+        r["wall_s"] = time.perf_counter() - t0
+        out[label] = r
+        st = r["stats"]
+        log(f"{label}: B={B}, {r['rounds']} rounds x {len(r['values'])} timed passes in "
+            f"{r['wall_s']:.1f} s; aggregate {r['median']:.2f} scans/s median, {r['best']:.2f} best, "
+            f"passes {[round(v, 3) for v in r['values']]}; ATE max {max(r['ates']):.6f} m; "
+            f"map_dropped {st['map_dropped_final']}, meas_dropped {st['meas_dropped_max']}, "
+            f"nn_miss p50 {st['nn_miss_p50']} p99 {st['nn_miss_p99']}; {smi}")
+        bad = [a for a in r["ates"] if not (np.isfinite(a) and a <= ATE_GATE_M)]
+        # lanes past the measurement cap: the JAX package's _flagship_config
+        # sized its 13/16 cap on sequence 0, which stays under it; other
+        # seeds' scans hold more live lanes in some rounds, so at B = BATCH
+        # the drops are reported per sequence (sequence 0 must drop none)
+        md = sinks[label]["n_meas_dropped"]
+        r["meas_dropped_by_sequence"] = md.max(1).tolist()
+        r["meas_dropped_rounds_by_sequence"] = (md > 0).sum(1).tolist()
+        if bad or st["map_dropped_final"] or md[0].any():
+            raise AssertionError(f"{label}: ATE over {ATE_GATE_M} m ({bad}) or drops ({st}, "
+                                 f"lanes dropped by sequence {r['meas_dropped_by_sequence']})")
+    log(f"batched: per-sequence ATE (m) {[round(a, 6) for a in out['batched']['ates']]}; "
+        f"measurement lanes over the cap, most in a round by sequence "
+        f"{out['batched']['meas_dropped_by_sequence']}, in "
+        f"{out['batched']['meas_dropped_rounds_by_sequence']} rounds")
+    v_base = len(vh._svx_ball_offsets(cfg.knn_radius))
+    knn_key = (BATCH * cfg.max_meas_points, v_base, meas.CAND_K)
+    desk_key = (BATCH, cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity)
+    if not (paths["batched"]["knn_window"].get(knn_key) and paths["batched"]["deskew"].get(desk_key)):
+        raise AssertionError(f"batched path: no launch at {knn_key} / {desk_key}: {paths['batched']}")
+
+    # three sequences of the batch against their own B = 1 runs
+    checks = {}
+    pos16 = sinks["batched"]["pos"]
+    for b in BATCH_CHECK:
+        imu, rounds, traj = flagship_sequence(cfg, BATCH_SECONDS, seed=b)
+        groups = assemble_groups(cfg, imu, rounds)[: BATCH_CHECK_ROUNDS + BATCH_CHUNK]
+        one = {}
+        batched._run_benchmark(cfg, [(groups, traj)], torch.float32, BATCH_CHUNK, 8, 1, sink=one)
+        k = min(len(pos16[b]), len(one["pos"][0]))  # rounds both replayed
+        a, w = pos16[b][:k], one["pos"][0][:k]
+        checks[b] = dict(max_dpos_m=float(np.abs(a - w).max()), bit_equal=bool(np.array_equal(a, w)),
+                         rounds=int(w.shape[0]))
+        if not checks[b]["max_dpos_m"] <= BATCH_TOL_M:
+            raise AssertionError(f"batched: sequence {b} differs from its own run: {checks[b]}")
+    log(f"batched: sequences {list(BATCH_CHECK)} against their own runs (first "
+        f"{checks[BATCH_CHECK[0]]['rounds']} rounds): max |dpos| "
+        f"{[c['max_dpos_m'] for c in checks.values()]} m (limit {BATCH_TOL_M}), bit-equal "
+        f"{sum(c['bit_equal'] for c in checks.values())} of {len(checks)}")
+    out["single_checks"] = checks
+
+    # where a steady batched round's time goes
+    seqs = batched._build_sequences(cfg, BATCH, BATCH_PROFILE_SECONDS, 4096,
+                                    batched._flagship_world(cfg))
+    last = {}
+    knn_cached = vh.knn_cached
+
+    def recording_knn_cached(m, queries, **kw2):
+        last.update(queries=queries, qmask=kw2.get("qmask"))
+        return knn_cached(m, queries, **kw2)
+
+    rec16 = {}
+    vh.knn_cached = recording_knn_cached
+    try:
+        prof16 = profile_phase(batched_drive(cfg, seqs, rec16),
+                               1e3 * BATCH / out["batched"]["median"],
+                               label=f"batched profile B={BATCH}")
+    finally:
+        vh.knn_cached = knn_cached
+    # each sequence of the batch runs its own iteration count; the loop runs
+    # the batch's largest
+    it16 = rec16["iterations"][8:13]
+    ratio = prof16["launches_per_round"] / main_profile["launches_per_round"]
+    out["profile"] = {f"B={BATCH}": prof16, "launch_ratio_to_main_path": ratio,
+                      "iekf_iterations_max": it16.max(1).tolist(),
+                      "iekf_iterations_mean": it16.mean(1).tolist()}
+    log(f"batched profile: {prof16['launches_per_round']:.0f} launches per round at B={BATCH} "
+        f"against {main_profile['launches_per_round']:.0f} on the main path (B=1, {ratio:.3f}x); "
+        f"IEKF iterations per traced round, batch maximum {it16.max(1).tolist()}, mean "
+        f"{[round(float(v), 2) for v in it16.mean(1)]}; {smi}")
+
+    # both kernels at the batched shapes: the k-NN on the batch's maps and
+    # last-round queries, the deskew on seeded batched inputs
+    m = rec16["carry"].map
+    rows = knn_phase(m, last["queries"], last["qmask"], cfg, meas.CAND_K, suffix="_batched")
+    rows.append(deskew_phase("deskew_batched", deskew_inputs_batch(
+        BATCH, cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity, seed=1), floor))
+    for r in rows:
+        r["path"] = "batched"
+    return out, paths, rows
+
+
 def knn_function_check(m, queries, qmask, cfg):
     """vh.knn at K = 5 (the base window and the budgeted wide escalation) on
     the main path's map and last queries: through the fused kernel, then
@@ -1148,7 +1360,7 @@ def main(save_stage_inputs=None):
     import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
     from malio_tpu_torch import measurement as meas
     from malio_tpu_torch import propagate as prop
-    from malio_tpu_torch import runner
+    from malio_tpu_torch import runner, tree
     from malio_tpu_torch.config import Config, flagship_config
     from malio_tpu_torch.eval.ate import ate_rmse
     from malio_tpu_torch.io.assemble import assemble_groups
@@ -1206,11 +1418,12 @@ def main(save_stage_inputs=None):
     knn_cached = vh.knn_cached
 
     def recording_knn_cached(m, queries, **kw):
-        last_search.update(queries=queries, qmask=kw.get("qmask"))
+        # the main path's rounds are batches of one: keep its one sequence
+        last_search.update(queries=queries[0], qmask=kw.get("qmask")[0])
         return knn_cached(m, queries, **kw)
 
     def recording_deskew(*args):
-        last_deskew["args"] = args
+        last_deskew["args"] = tree.squeeze(args)
         return deskew.deskew_points(*args)
 
     vh.knn_cached = recording_knn_cached
@@ -1243,7 +1456,7 @@ def main(save_stage_inputs=None):
     log(f"ATE {ate:.6f} m (gate {ATE_GATE_M}), map_dropped {int(res['map_dropped'][-1])}, "
         f"meas_dropped max {int(res['n_meas_dropped'].max())}, nn_miss p50 {miss_p50}, "
         f"map_size {int(res['map_size'][-1])}, launches knn_window {by_shape} "
-        f"(Q, V, K): n, deskew {desk_by_shape} (L, N, C): n")
+        f"(Q, V, K): n, deskew {desk_by_shape} (B, L, N, C): n")
     if not (np.isfinite(ate) and ate <= ATE_GATE_M):
         raise AssertionError(f"ATE {ate} is not finite or exceeds {ATE_GATE_M} m")
     if not np.all(np.isfinite(res["pos"])) or res["pos"].shape != (rounds, 3):
@@ -1300,7 +1513,7 @@ def main(save_stage_inputs=None):
         raise AssertionError(f"kernel and plain trajectories differ by {dpos} m")
 
     # ---- where a steady round's time goes ----
-    report["profile"] = profile_phase(cfg, groups, n_init, round_ms=1e3 / steady)
+    report["profile"] = profile_phase(run_rounds(cfg, groups, n_init), round_ms=1e3 / steady)
 
     done("kernel, stage, plain and profile phases")
 
@@ -1317,8 +1530,11 @@ def main(save_stage_inputs=None):
     done("back end")
     report["solver"] = solver_phase()
     done("solver")
+    report["batched"], batch_paths, batch_rows = batched_phase(floor, smi, report["profile"])
+    paths.update(batch_paths)
+    done("batched")
 
-    kernels = knn_rows + desk_rows
+    kernels = knn_rows + desk_rows + batch_rows
     for r in kernels:
         r["floor_ms"] = floor
         if "K" in r:
@@ -1326,7 +1542,9 @@ def main(save_stage_inputs=None):
         else:
             key, counts = r.pop("shape_key"), "deskew"
         r["launches_by_path"] = {p: c[counts].get(key, 0) for p, c in paths.items()}
-        r["launches"] = r["launches_by_path"]["main"]  # the main path's launches at the row's shape
+        # the launches of the row's own path (the main path, or the batched
+        # path for the rows at the batched shapes) at the row's shape
+        r["launches"] = r["launches_by_path"][r.get("path", "main")]
     keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
             "call_ms", "plain_ms", "plain_call_ms", "bound_ms", "bound_by", "library_ms",
             "library_call_ms", "bound_with_floor_ms", "launches_by_path")

@@ -49,9 +49,13 @@
 //   translations, t0 and num_valid go to shared memory at block start
 //   instead of being rebuilt for every point; the point's load goes out
 //   first, so the two round trips overlap.
-// - The launcher refuses more than MAX_LIDARS LiDARs or
-//   MAX_CONTROL_POINTS control points (returns REFUSED, which the wrapper
-//   raises as a ValueError) before it launches anything.
+// - A batch of B independent sequences (each its own points, spline and
+//   frames) runs in one launch: block row blockIdx.y = b works on
+//   sequence b alone, so a block's frames and staged spline are one
+//   sequence's and no warp or block straddles two sequences.
+// - The launcher refuses more than MAX_LIDARS LiDARs, MAX_CONTROL_POINTS
+//   control points or MAX_SEQUENCES sequences (returns REFUSED, which the
+//   wrapper raises as a ValueError) before it launches anything.
 // - The translation is composed relative to the scan-end pose: the two
 //   world positions, tens of metres from the origin on a run, cancel
 //   first, and no sum rounds at the ulp of a world coordinate.
@@ -71,6 +75,7 @@ constexpr int POINTS_PER_WARP3 = 10;  // LANES = 3: lanes 0-29
 // shared memory beside the 3 KB of frames, under the 48 KB a block gets
 // without an opt-in
 constexpr int MAX_CONTROL_POINTS = 44 * 1024 / (22 * 4);
+constexpr int MAX_SEQUENCES = 65535;  // gridDim.y
 constexpr int REFUSED = -1;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -246,11 +251,25 @@ __global__ void __launch_bounds__(THREADS)
                   const float* __restrict__ lt_q,
                   const float* __restrict__ lt_t, float dt,
                   float* __restrict__ out) {
+  // pts, out: (B, L, N, 4); cps (B, C, 16); logs (B, C, 6); t0p, nvp (B);
+  // ext_q, lt_q (B, L, 4); ext_t, lt_t (B, L, 3)
   constexpr bool SH = LANES == 1;  // the spline staged in shared memory
   __shared__ Frame fr[MAX_LIDARS];
   __shared__ float s_t0;
   __shared__ int s_nv;
   extern __shared__ float tab[];  // SH: C x 16 control poses, C x 6 logs
+  // this block's sequence: its points, spline and frames
+  const long b = blockIdx.y;
+  pts += b * L * N * 4;
+  out += b * L * N * 4;
+  cps += b * C * 16;
+  logs += b * C * 6;
+  t0p += b;
+  nvp += b;
+  ext_q += b * L * 4;
+  ext_t += b * L * 3;
+  lt_q += b * L * 4;
+  lt_t += b * L * 3;
   const int lane = threadIdx.x & 31;
   const int s = LANES == 1 ? 0 : lane % 3;  // this lane's exp
   const long tid = (long)blockIdx.x * THREADS + threadIdx.x;
@@ -333,38 +352,38 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int LANES>
-static void launch(long total, cudaStream_t st, const float* pts, int L,
-                   int N, const float* cps, const float* logs, int C,
+static void launch(int B, long total, cudaStream_t st, const float* pts,
+                   int L, int N, const float* cps, const float* logs, int C,
                    const float* t0, const int* nv, const float* ext_q,
                    const float* ext_t, const float* lt_q, const float* lt_t,
                    float dt, float* out) {
   const long per_block = LANES == 1 ? THREADS : THREADS / 32 * POINTS_PER_WARP3;
-  const long blocks = (total + per_block - 1) / per_block;
+  const dim3 grid((unsigned)((total + per_block - 1) / per_block), (unsigned)B);
   const size_t smem = LANES == 1 ? (size_t)C * 22 * sizeof(float) : 0;
-  deskew_kernel<LANES><<<(unsigned)blocks, THREADS, smem, st>>>(
+  deskew_kernel<LANES><<<grid, THREADS, smem, st>>>(
       pts, L, N, cps, logs, C, t0, nv, ext_q, ext_t, lt_q, lt_t, dt, out);
 }
 
-// lanes: 1 or 3 per point, as the wrapper picks them from L * N. Returns
-// REFUSED for what the kernel does not take, else the CUDA error of the
-// launch.
-extern "C" int deskew_launch(const float* pts, int L, int N, const float* cps,
-                             const float* logs, int C, const float* t0,
-                             const int* num_valid, const float* ext_q,
-                             const float* ext_t, const float* lt_q,
-                             const float* lt_t, float dt, int lanes,
-                             float* out, void* stream) {
-  if (L < 1 || L > MAX_LIDARS || N < 0 || C < 1 || C > MAX_CONTROL_POINTS ||
-      (lanes != 1 && lanes != 3))
+// B sequences of L LiDARs x N points; lanes: 1 or 3 per point, as the
+// wrapper picks them from B * L * N. Returns REFUSED for what the kernel
+// does not take, else the CUDA error of the launch.
+extern "C" int deskew_launch(const float* pts, int B, int L, int N,
+                             const float* cps, const float* logs, int C,
+                             const float* t0, const int* num_valid,
+                             const float* ext_q, const float* ext_t,
+                             const float* lt_q, const float* lt_t, float dt,
+                             int lanes, float* out, void* stream) {
+  if (B < 0 || B > MAX_SEQUENCES || L < 1 || L > MAX_LIDARS || N < 0 ||
+      C < 1 || C > MAX_CONTROL_POINTS || (lanes != 1 && lanes != 3))
     return REFUSED;
-  const long total = (long)L * N;
-  if (total == 0) return 0;
+  const long total = (long)L * N;  // points of one sequence
+  if (total == 0 || B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (lanes == 3)
-    launch<3>(total, st, pts, L, N, cps, logs, C, t0, num_valid, ext_q, ext_t,
-              lt_q, lt_t, dt, out);
+    launch<3>(B, total, st, pts, L, N, cps, logs, C, t0, num_valid, ext_q,
+              ext_t, lt_q, lt_t, dt, out);
   else
-    launch<1>(total, st, pts, L, N, cps, logs, C, t0, num_valid, ext_q, ext_t,
-              lt_q, lt_t, dt, out);
+    launch<1>(B, total, st, pts, L, N, cps, logs, C, t0, num_valid, ext_q,
+              ext_t, lt_q, lt_t, dt, out);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,7 @@ import torch
 from ..geometry import so3, s2
 from .. import state as st
 from ..device import resolve_device
+from ..linalg import mm
 
 
 class Input(NamedTuple):
@@ -38,14 +39,15 @@ def _mv(R, v):
 
 
 def step_mean(x: st.State, u: Input, dt) -> st.State:
-    """Mean-only Euler step."""
+    """Mean-only Euler step; dt has the batch shape of x (or is a scalar)."""
     omega = u.gyro - x.bg
     acc_b = u.acc - x.ba
     a_world = _mv(so3.quat_to_mat(x.rot), acc_b) + x.grav
+    dtv = torch.as_tensor(dt, dtype=x.pos.dtype, device=x.pos.device)[..., None]
     return x._replace(
-        pos=x.pos + x.vel * dt,
-        rot=so3.boxplus(x.rot, omega * dt),
-        vel=x.vel + a_world * dt,
+        pos=x.pos + x.vel * dtv,
+        rot=so3.boxplus(x.rot, omega * dtv),
+        vel=x.vel + a_world * dtv,
     )
 
 
@@ -98,7 +100,7 @@ def transition(x: st.State, u: Input, dt):
 def predict(x: st.State, P, u: Input, dt, Q):
     """Propagate mean and covariance."""
     x_next, F, Fw = transition(x, u, dt)
-    P_next = F @ P @ F.T + Fw @ Q @ Fw.T
+    P_next = mm(mm(F, P), F.transpose(-1, -2)) + mm(mm(Fw, Q), Fw.transpose(-1, -2))
     return x_next, P_next
 
 
@@ -108,14 +110,15 @@ def parallel_covariance(Fs, Qts, P0):
     The affine maps (F, Q) compose associatively,
     (F2, Q2) o (F1, Q1) = (F2 F1, F2 Q1 F2^T + Q2), so an inclusive
     Hillis-Steele scan reduces the chain in ceil(log2 N) batched levels.
-    Fs, Qts: (N, n, n). Returns (N, n, n) covariances after each step."""
+    Fs, Qts: (..., N, n, n), P0 (..., n, n) with the same leading batch
+    axes. Returns (..., N, n, n) covariances after each step."""
     G, S = Fs, Qts
-    N = Fs.shape[0]
+    N = Fs.shape[-3]
     d = 1
     while d < N:
-        Fa, Qa = G[:-d], S[:-d]
-        Fb, Qb = G[d:], S[d:]
-        G = torch.cat([G[:d], Fb @ Fa], dim=0)
-        S = torch.cat([S[:d], Fb @ Qa @ Fb.transpose(-1, -2) + Qb], dim=0)
+        Fa, Qa = G[..., :-d, :, :], S[..., :-d, :, :]
+        Fb, Qb = G[..., d:, :, :], S[..., d:, :, :]
+        G = torch.cat([G[..., :d, :, :], mm(Fb, Fa)], dim=-3)
+        S = torch.cat([S[..., :d, :, :], mm(mm(Fb, Qa), Fb.transpose(-1, -2)) + Qb], dim=-3)
         d *= 2
-    return G @ P0 @ G.transpose(-1, -2) + S
+    return mm(mm(G, P0.unsqueeze(-3)), G.transpose(-1, -2)) + S

@@ -4,7 +4,9 @@ The JAX package's pytrees (LioCarry, State, History, MeasureGroup,
 VoxelHashMap, KeyframeWindow, EdgeSet) travel as nested dicts of numpy
 arrays keyed by field name; these functions turn such dicts into the
 port's NamedTuples of tensors and back, so both packages can step from the
-same carry. The back-end observers (PoseGraphBackend, WindowSmoother)
+same carry. A JAX carry of B sequences stacked with jnp.stack (the
+reference's distributed/sharding.py batch_carries) crosses over as one
+batched carry, its groups stacked likewise. The back-end observers (PoseGraphBackend, WindowSmoother)
 travel as their stores: the host fields as they are, the smoother's
 keyframe window as a nested dict. Dtypes are kept as given. The port never
 sees a JAX object: the caller flattens that side. Like the package's entry

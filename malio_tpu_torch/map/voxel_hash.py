@@ -10,6 +10,13 @@ with 32-bit masks, bit-equal to the JAX package for negative keys too.
 
 Every function returns a new map and leaves its input untouched, as the
 JAX package does (one table copy per insert or eviction).
+
+A batch of B maps (one per sequence) stacks the fields: `tab` (B, R,
+SLOTS, 5), `n_dropped` / `n_evicted` (B,). The round's functions
+(`lookup`, `insert`, `evict_outside`, `size`, `_window_rows`,
+`_knn_window`, `knn_cached`) take either form; on a batch they address
+the tables as one flat (B * R, SLOTS, 5) table with sequence b's rows at
+b * R, and give each sequence what it would get alone, bit for bit.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tree
 from ..device import resolve_device
 from ..geometry import so3
 from ..ops import kernel_enabled, knn as knn_ops
@@ -34,10 +42,10 @@ _WINDOW_CHUNK = 64
 
 
 class VoxelHashMap(NamedTuple):
-    tab: torch.Tensor  # (R, SLOTS, 5) rows [fp, x, y, z, cov]
-    voxel_size: torch.Tensor  # ()
-    n_dropped: torch.Tensor  # () int32 cumulative insert overflow drops
-    n_evicted: torch.Tensor  # () int32 cumulative evict-replace displacements
+    tab: torch.Tensor  # ([B,] R, SLOTS, 5) rows [fp, x, y, z, cov]
+    voxel_size: torch.Tensor  # ([B])
+    n_dropped: torch.Tensor  # ([B]) int32 cumulative insert overflow drops
+    n_evicted: torch.Tensor  # ([B]) int32 cumulative evict-replace displacements
 
     @property
     def capacity(self) -> int:
@@ -64,8 +72,20 @@ def create(capacity: int, voxel_size: float, dtype=torch.float32, device="cuda")
 
 
 def voxel_key(m: VoxelHashMap, pts):
-    """int64 voxel keys (values in int32 range)."""
-    return torch.floor(pts / m.voxel_size).to(torch.int32).to(torch.int64)
+    """int64 voxel keys (values in int32 range) of pts ([B,] ..., 3)."""
+    vs = m.voxel_size
+    vs = vs.reshape(vs.shape + (1,) * (pts.dim() - vs.dim()))
+    return torch.floor(pts / vs).to(torch.int32).to(torch.int64)
+
+
+def _batch_rows(m: VoxelHashMap, rows):
+    """The table and row ids a gather reads: a batched map's tables as one
+    flat (B * R, SLOTS, 5) table with rows (B, ...) offset by b * R."""
+    if m.tab.dim() == 3:
+        return m.tab, rows
+    B, R = m.tab.shape[:2]
+    off = (torch.arange(B, device=rows.device) * R).reshape((B,) + (1,) * (rows.dim() - 1))
+    return m.tab.reshape(B * R, SLOTS, 5), rows + off
 
 
 def _svx(keys):
@@ -114,11 +134,12 @@ def _first_true(mask):
 
 
 def lookup(m: VoxelHashMap, keys):
-    """Flat slot holding each voxel key: (slot, found), slot 0 where not
-    found (mask with `found`)."""
-    R = m.tab.shape[0]
+    """Flat slot (of its own sequence's table) holding each voxel key:
+    (slot, found), slot 0 where not found (mask with `found`)."""
+    R = m.tab.shape[-3]
     b = _hash(_svx(keys), R)
-    rows = m.tab[b]  # (..., SLOTS, 5)
+    tab, g = _batch_rows(m, b)
+    rows = tab[g]  # ([B,] ..., SLOTS, 5)
     want = _fingerprint(keys).to(m.tab.dtype)
     match = rows[..., 0] == want[..., None]
     found = torch.any(match, dim=-1)
@@ -134,39 +155,46 @@ def _segment_rank(seg_start, member):
 
 
 def insert(m: VoxelHashMap, pts, covs, mask) -> VoxelHashMap:
-    """Insert world points with stored covariances: one sort by (row,
-    voxel fingerprint, cov, batch index) and one uniquely-indexed write.
-    Lowest covariance wins a voxel; new voxels take the rank-th empty lane
-    of their row; a full row may displace its worst record once (counted
-    in n_evicted) or drops the candidate (counted in n_dropped)."""
-    R = m.tab.shape[0]
+    """Insert world points ([B,] N, 3) with stored covariances: one sort by
+    (sequence, row, voxel fingerprint, cov, batch index) and one
+    uniquely-indexed write. Lowest covariance wins a voxel; new voxels take
+    the rank-th empty lane of their row; a full row may displace its worst
+    record once (counted in n_evicted) or drops the candidate (counted in
+    n_dropped)."""
+    if m.tab.dim() == 3:
+        return tree.squeeze(insert(*tree.unsqueeze((m, pts, covs, mask))))
+    B, R = m.tab.shape[:2]
     T = R * SLOTS
-    N = pts.shape[0]
+    N = pts.shape[1]
     dtype = m.tab.dtype
     dev = m.tab.device
     keys = voxel_key(m, pts)
-    fp = _fingerprint(keys)
-    b = torch.where(mask, _hash(_svx(keys), R), torch.full_like(fp, R))
-    covf = torch.where(mask, covs.to(dtype), torch.full_like(covs, float("inf"), dtype=dtype))
+    fp = _fingerprint(keys).reshape(-1)
+    b = torch.where(mask, _hash(_svx(keys), R), torch.full_like(keys[..., 0], R))
+    # sort key of (sequence, row): each sequence's rows and its "no row" R
+    # sit after the previous sequence's
+    g = (b + torch.arange(B, device=dev)[:, None] * (R + 1)).reshape(-1)
+    b = b.reshape(-1)
+    covf = torch.where(mask, covs.to(dtype), torch.full_like(covs, float("inf"), dtype=dtype)).reshape(-1)
 
-    # lexicographic (b, fp, cov, index): chained stable sorts, least
-    # significant key first; the index tiebreak is the stability itself
-    idx = torch.arange(N, device=dev)
+    # lexicographic (sequence and row, fp, cov, index): chained stable
+    # sorts, least significant key first; the index tiebreak is the
+    # stability itself. Sequence s fills sorted positions [s N, (s+1) N).
     o = torch.argsort(covf, stable=True)
     o = o[torch.argsort(fp[o], stable=True)]
-    o = o[torch.argsort(b[o], stable=True)]
-    idx_s = idx[o]
-    b_s, fp_s, cov_s = b[o], fp[o], covf[o]
-    pts_s = pts.to(dtype)[idx_s]
+    o = o[torch.argsort(g[o], stable=True)]
+    g_s, b_s, fp_s, cov_s = g[o], b[o], fp[o], covf[o]
+    pts_s = pts.to(dtype).reshape(B * N, 3)[o]
     live = b_s < R
     rec_s = torch.cat([fp_s.to(dtype)[:, None], pts_s, cov_s[:, None]], dim=-1)
 
-    prev_b = torch.cat([torch.full((1,), -1, dtype=b_s.dtype, device=dev), b_s[:-1]])
+    prev_g = torch.cat([torch.full((1,), -1, dtype=g_s.dtype, device=dev), g_s[:-1]])
     prev_fp = torch.cat([torch.full((1,), -1, dtype=fp_s.dtype, device=dev), fp_s[:-1]])
-    row_start = b_s != prev_b
+    row_start = g_s != prev_g
     vox_first = live & (row_start | (fp_s != prev_fp))
 
-    rows = m.tab[torch.clamp(b_s, max=R - 1)]  # (N, SLOTS, 5)
+    grow = (o // N) * R + torch.clamp(b_s, max=R - 1)  # row of the flat (B * R) table
+    rows = m.tab.reshape(B * R, SLOTS, 5)[grow]  # (B N, SLOTS, 5)
     fps = rows[..., 0]
     match = fps == fp_s.to(dtype)[:, None]
     found = torch.any(match, dim=-1)
@@ -187,34 +215,36 @@ def insert(m: VoxelHashMap, pts, covs, mask) -> VoxelHashMap:
     vcov, _ = torch.max(occ_cov, dim=-1)
     vlane = torch.argmax(occ_cov, dim=-1)
     seg_id = torch.cumsum(row_start.to(torch.int64), 0) - 1
-    row_upd = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(
+    row_upd = torch.zeros(B * N, dtype=torch.int64, device=dev).index_add_(
         0, seg_id, upd.to(torch.int64)
     )[seg_id]
     evict = over & (rank == n_empty) & (cov_s < vcov) & (row_upd == 0)
 
     writes = upd | fits | evict
     lane = torch.where(upd, mlane, torch.where(evict, vlane, clane))
-    slot = b_s * SLOTS + lane
-    tgt = torch.where(writes, slot, torch.full_like(slot, T))  # T = dump row
-    flat = torch.cat([m.tab.reshape(T, 5), torch.zeros((1, 5), dtype=dtype, device=dev)])
+    slot = grow * SLOTS + lane
+    tgt = torch.where(writes, slot, torch.full_like(slot, B * T))  # B T = dump row
+    flat = torch.cat([m.tab.reshape(B * T, 5), torch.zeros((1, 5), dtype=dtype, device=dev)])
     flat[tgt] = rec_s
-    dropped = torch.sum(over & ~evict).to(torch.int32)
-    evicted = torch.sum(evict).to(torch.int32)
+    dropped = torch.sum((over & ~evict).reshape(B, N), dim=-1).to(torch.int32)
+    evicted = torch.sum(evict.reshape(B, N), dim=-1).to(torch.int32)
     return m._replace(
-        tab=flat[:T].reshape(R, SLOTS, 5),
+        tab=flat[: B * T].reshape(B, R, SLOTS, 5),
         n_dropped=m.n_dropped + dropped,
         n_evicted=m.n_evicted + evicted,
     )
 
 
 def evict_outside(m: VoxelHashMap, box_min, box_max) -> VoxelHashMap:
-    """Free every cell whose point lies outside [box_min, box_max]."""
-    flat = m.flat
-    inside = torch.all((flat[:, 1:4] >= box_min) & (flat[:, 1:4] <= box_max), dim=-1)
-    keep = (flat[:, 0] != 0) & inside
+    """Free every cell whose point lies outside [box_min, box_max] (([B,] 3),
+    each sequence's own box)."""
+    flat = m.tab.reshape(*m.tab.shape[:-3], -1, 5)
+    lo, hi = box_min[..., None, :], box_max[..., None, :]
+    inside = torch.all((flat[..., 1:4] >= lo) & (flat[..., 1:4] <= hi), dim=-1)
+    keep = (flat[..., 0] != 0) & inside
     new = flat.clone()
-    new[:, 0] = torch.where(keep, flat[:, 0], torch.zeros_like(flat[:, 0]))
-    new[:, 4] = torch.where(keep, flat[:, 4], torch.full_like(flat[:, 4], float("inf")))
+    new[..., 0] = torch.where(keep, flat[..., 0], torch.zeros_like(flat[..., 0]))
+    new[..., 4] = torch.where(keep, flat[..., 4], torch.full_like(flat[..., 4], float("inf")))
     return m._replace(tab=new.reshape(m.tab.shape))
 
 
@@ -234,7 +264,8 @@ def transform(m: VoxelHashMap, dq, dt) -> VoxelHashMap:
 
 
 def size(m: VoxelHashMap):
-    return torch.sum(m.flat[:, 0] != 0)
+    """Occupied cells ([B])."""
+    return torch.sum(m.tab[..., 0] != 0, dim=(-2, -1))
 
 
 def flatten(m: VoxelHashMap):
@@ -314,27 +345,27 @@ def _offsets(radius: int, device):
 
 def _dup_rows(b_all):
     """Offset j is dead if an earlier offset hashed to the same row."""
-    Q, V = b_all.shape
+    V = b_all.shape[-1]
     if V <= 1:
-        return torch.zeros((Q, V), dtype=torch.bool, device=b_all.device)
-    eq = b_all[:, :, None] == b_all[:, None, :]
+        return torch.zeros(b_all.shape, dtype=torch.bool, device=b_all.device)
+    eq = b_all[..., :, None] == b_all[..., None, :]
     tri = torch.tril(torch.ones((V, V), dtype=torch.bool, device=b_all.device), -1)
-    return torch.any(eq & tri[None], dim=-1)
+    return torch.any(eq & tri, dim=-1)
 
 
 def _window_rows(m: VoxelHashMap, queries, radius: int, qmask=None):
-    """The window of each query: its supervoxel rows (Q, V) over the
-    ball-pruned offsets of `radius`, and which of them are alive (not a
-    repeat of an earlier offset's row, and the query not masked off).
-    Masked queries fetch row 0."""
+    """The window of each query ([B,] Q, 3): its supervoxel rows ([B,] Q, V)
+    of its own sequence's table over the ball-pruned offsets of `radius`,
+    and which of them are alive (not a repeat of an earlier offset's row,
+    and the query not masked off). Masked queries fetch row 0."""
     offs = _offsets(radius, m.tab.device)
     anchors = _svx(voxel_key(m, queries) - radius)
-    b_all = _hash(anchors[:, None, :] + offs[None], m.tab.shape[0])  # (Q, V)
+    b_all = _hash(anchors[..., None, :] + offs, m.tab.shape[-3])  # ([B,] Q, V)
     if qmask is not None:
-        b_all = torch.where(qmask[:, None], b_all, torch.zeros_like(b_all))
+        b_all = torch.where(qmask[..., None], b_all, torch.zeros_like(b_all))
     alive = ~_dup_rows(b_all)
     if qmask is not None:
-        alive = alive & qmask[:, None]
+        alive = alive & qmask[..., None]
     return b_all, alive
 
 
@@ -346,44 +377,52 @@ def _take(x, idx):
 
 
 def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool = False):
-    """k nearest stored points over the supervoxel window of `radius`. The
-    kernel path hands the whole window to the fused window kernel; the
-    plain path streams it in chunks of _WINDOW_CHUNK rows with a running
-    top-k merge."""
+    """k nearest stored points over the supervoxel window of `radius`, for
+    queries ([B,] Q, 3) in their own sequence's table. The kernel path
+    hands the whole window of every sequence to one launch of the fused
+    window kernel; the plain path streams it in chunks of _WINDOW_CHUNK
+    rows with a running top-k merge."""
     dtype = m.tab.dtype
     queries = queries.to(dtype).contiguous()
     dev = m.tab.device
-    Q = queries.shape[0]
+    lead = queries.shape[:-1]
     big = torch.finfo(dtype).max
     b_all, alive = _window_rows(m, queries, radius)
-    V = b_all.shape[1]
+    V = b_all.shape[-1]
+    tab, rows = _batch_rows(m, b_all)
+    rows, alive, queries = rows.reshape(-1, V), alive.reshape(-1, V), queries.reshape(-1, 3)
+    Q = queries.shape[0]
+
+    def unflat(*outs):
+        return tuple(o.reshape(*lead, *o.shape[1:]) for o in outs)
 
     if use_kernel:
-        nn_pts, nn_covs, nn_d2 = knn_ops.knn_window(m.tab, queries, b_all, alive, k)
-        return nn_pts, nn_covs, nn_d2, torch.sum(nn_d2 < big, dim=-1)
+        nn_pts, nn_covs, nn_d2 = knn_ops.knn_window(tab, queries, rows, alive, k)
+        return unflat(nn_pts, nn_covs, nn_d2, torch.sum(nn_d2 < big, dim=-1))
 
     def chunk_candidates(b_c, alive_c):
-        rows = m.tab[b_c]
-        occ = (rows[..., 0] != 0) & alive_c[..., None]
-        cpts = rows[..., 1:4]
+        win = tab[b_c]
+        occ = (win[..., 0] != 0) & alive_c[..., None]
+        cpts = win[..., 1:4]
         d2 = _sqdist(cpts, queries[:, None, None, :])
         d2 = torch.where(occ, d2, torch.full_like(d2, big))
         C = b_c.shape[1]
         return (
             cpts.reshape(Q, C * SLOTS, 3),
-            rows[..., 4].reshape(Q, C * SLOTS),
+            win[..., 4].reshape(Q, C * SLOTS),
             d2.reshape(Q, C * SLOTS),
         )
 
     if V <= _WINDOW_CHUNK:
-        cand_pts, cand_cov, d2 = chunk_candidates(b_all, alive)
+        cand_pts, cand_cov, d2 = chunk_candidates(rows, alive)
         nn_d2, idx = topk_min(d2, k)
-        return _take(cand_pts, idx), _take(cand_cov, idx), nn_d2, torch.sum(nn_d2 < big, dim=-1)
+        return unflat(_take(cand_pts, idx), _take(cand_cov, idx), nn_d2,
+                      torch.sum(nn_d2 < big, dim=-1))
 
     nchunks = -(-V // _WINDOW_CHUNK)
     chunk = -(-V // nchunks)
     pad = nchunks * chunk - V
-    b_p = torch.cat([b_all, torch.zeros((Q, pad), dtype=b_all.dtype, device=dev)], dim=1)
+    b_p = torch.cat([rows, torch.zeros((Q, pad), dtype=rows.dtype, device=dev)], dim=1)
     alive_p = torch.cat([alive, torch.zeros((Q, pad), dtype=torch.bool, device=dev)], dim=1)
     b_pts = torch.zeros((Q, k, 3), dtype=dtype, device=dev)
     b_covs = torch.zeros((Q, k), dtype=dtype, device=dev)
@@ -396,7 +435,7 @@ def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool 
         all_d2 = torch.cat([b_d2, c_d2], dim=1)
         b_d2, idx = topk_min(all_d2, k)
         b_pts, b_covs = _take(all_pts, idx), _take(all_covs, idx)
-    return b_pts, b_covs, b_d2, torch.sum(b_d2 < big, dim=-1)
+    return unflat(b_pts, b_covs, b_d2, torch.sum(b_d2 < big, dim=-1))
 
 
 def knn(
@@ -466,69 +505,79 @@ def knn_cached(
     cache_k: int = CACHE_K,
     use_kernel: bool = False,
 ):
-    """k-NN (k = accept_k) plus the compact top-`cache_k` candidate cache.
+    """k-NN (k = accept_k) plus the compact top-`cache_k` candidate cache,
+    for queries ([B,] Q, 3) in their own sequence's map.
 
-    Returns (nn_pts (Q, ak, 3), nn_covs, nn_d2, nn_cnt, n_miss,
-    cache_pts (Q, cache_k, 3), cache_covs, cache_valid). Queries failing
-    the acceptance rule (accept_k found, accept_k-th d2 <= accept_d2) are
-    re-searched over the ball-pruned wide window, up to wide_budget of
-    them; a small always-on tier of 256 takes the common case and the full
-    budget runs only when demand exceeds it. The tier is chosen on the host
-    (one device read of the escalation count)."""
+    Returns (nn_pts ([B,] Q, ak, 3), nn_covs, nn_d2, nn_cnt, n_miss ([B]),
+    cache_pts ([B,] Q, cache_k, 3), cache_covs, cache_valid). Queries
+    failing the acceptance rule (accept_k found, accept_k-th d2 <=
+    accept_d2) are re-searched over the ball-pruned wide window, up to
+    wide_budget of them per sequence; a small always-on tier of 256 takes
+    the common case and the full budget runs only when some sequence's
+    demand exceeds it. The tier is chosen on the host from one device read
+    (the batch's largest escalation count); a sequence with at most 256
+    escalations gets the same answer from either tier, so each sequence's
+    result is the one it would get alone."""
     assert cache_k >= accept_k, (cache_k, accept_k)
     dtype = m.tab.dtype
     dev = m.tab.device
     queries = queries.to(dtype).contiguous()
-    Q = queries.shape[0]
+    Q = queries.shape[-2]
     big = torch.finfo(dtype).max
     b_all, alive = _window_rows(m, queries, radius, qmask)
+    V = b_all.shape[-1]
+    tab, rows = _batch_rows(m, b_all)
     window = knn_ops.knn_window if use_kernel else knn_ops.knn_window_plain
-    cache_pts, cache_covs, cache_d2 = window(m.tab, queries, b_all, alive, cache_k)
+    cache = window(tab, queries.reshape(-1, 3), rows.reshape(-1, V), alive.reshape(-1, V), cache_k)
+    cache_pts, cache_covs, cache_d2 = (c.reshape(*queries.shape[:-1], *c.shape[1:]) for c in cache)
     cache_valid = cache_d2 < big
 
     ak = accept_k
-    nn_pts, nn_covs, nn_d2 = cache_pts[:, :ak], cache_covs[:, :ak], cache_d2[:, :ak]
+    nn_pts, nn_covs, nn_d2 = cache_pts[..., :ak, :], cache_covs[..., :ak], cache_d2[..., :ak]
     nn_cnt = torch.sum(nn_d2 < big, dim=-1)
     acc = torch.tensor(accept_d2, dtype=dtype, device=dev)
 
     def misses(d2k, cnt):
-        need = ~((cnt >= ak) & (d2k[:, ak - 1] <= acc))
+        need = ~((cnt >= ak) & (d2k[..., ak - 1] <= acc))
         if qmask is not None:
             need = need & qmask
         return need
 
     if wide_budget <= 0 or wide_radius <= radius:
-        n_miss = torch.sum(misses(nn_d2, nn_cnt)).to(torch.int32)
+        n_miss = torch.sum(misses(nn_d2, nn_cnt), dim=-1).to(torch.int32)
         return (nn_pts, nn_covs, nn_d2, nn_cnt, n_miss, cache_pts, cache_covs, cache_valid)
 
     need = misses(nn_d2, nn_cnt)
     needi = need.to(torch.int64)
-    rank = torch.cumsum(needi, 0) - needi
+    rank = torch.cumsum(needi, -1) - needi
     small = min(256, wide_budget)
     budget = wide_budget
     if small < wide_budget:
-        budget = wide_budget if int(torch.sum(needi)) > small else small
+        budget = wide_budget if int(torch.amax(torch.sum(needi, -1))) > small else small
 
     valid = need & (rank < budget)
-    ar = torch.arange(Q, device=dev)
+    ar = torch.arange(Q, device=dev).expand(rank.shape)
     tgt = torch.where(valid, rank, budget + ar)
-    inv = torch.full((budget + Q,), Q, dtype=torch.int64, device=dev)
-    inv[tgt] = ar
-    safe = torch.clamp(inv[:budget], max=Q - 1)
+    inv = torch.full((*rank.shape[:-1], budget + Q), Q, dtype=torch.int64, device=dev)
+    inv.scatter_(-1, tgt, ar)
+    safe = torch.clamp(inv[..., :budget], max=Q - 1)
     w_pts, w_covs, w_d2, w_cnt = _knn_window(
-        m, queries[safe], cache_k, wide_radius, use_kernel=use_kernel
+        m, torch.take_along_dim(queries, safe[..., None], dim=-2), cache_k, wide_radius,
+        use_kernel=use_kernel,
     )
     r = torch.clamp(rank, max=budget - 1)
-    vcol = valid[:, None]
-    w_pts_r, w_covs_r, w_d2_r, w_cnt_r = w_pts[r], w_covs[r], w_d2[r], w_cnt[r]
-    o_pts = torch.where(vcol[..., None], w_pts_r[:, :ak], nn_pts)
-    o_covs = torch.where(vcol, w_covs_r[:, :ak], nn_covs)
-    o_d2 = torch.where(vcol, w_d2_r[:, :ak], nn_d2)
+    w_pts_r = torch.take_along_dim(w_pts, r[..., None, None], dim=-3)
+    w_covs_r, w_d2_r = (torch.take_along_dim(w, r[..., None], dim=-2) for w in (w_covs, w_d2))
+    w_cnt_r = torch.take_along_dim(w_cnt, r, dim=-1)
+    vcol = valid[..., None]
+    o_pts = torch.where(vcol[..., None], w_pts_r[..., :ak, :], nn_pts)
+    o_covs = torch.where(vcol, w_covs_r[..., :ak], nn_covs)
+    o_d2 = torch.where(vcol, w_d2_r[..., :ak], nn_d2)
     o_cnt = torch.where(valid, torch.clamp(w_cnt_r, max=ak), nn_cnt)
     lanes = torch.arange(cache_k, device=dev)
-    w_valid = lanes[None, :] < torch.clamp(w_cnt_r, max=cache_k)[:, None]
+    w_valid = lanes < torch.clamp(w_cnt_r, max=cache_k)[..., None]
     cache_pts = torch.where(vcol[..., None], w_pts_r, cache_pts)
     cache_covs = torch.where(vcol, w_covs_r, cache_covs)
     cache_valid = torch.where(vcol, w_valid, cache_valid)
-    n_miss = torch.sum(misses(o_d2, o_cnt)).to(torch.int32)
+    n_miss = torch.sum(misses(o_d2, o_cnt), dim=-1).to(torch.int32)
     return (o_pts, o_covs, o_d2, o_cnt, n_miss, cache_pts, cache_covs, cache_valid)

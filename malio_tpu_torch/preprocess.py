@@ -48,31 +48,43 @@ def floor_div(pts, size: float):
 
 
 def voxel_downsample(pts, aux, mask, voxel_size: float, out_cap: int):
-    """pts (P, 3), aux (P, A), mask (P,) -> (out (out_cap, 3),
-    aux_out (out_cap, A), mask_out (out_cap,))."""
-    h = spatial_hash(floor_div(pts, voxel_size))
-    h = torch.where(mask, h, torch.full_like(h, MASK32))
+    """pts ([G...,] P, 3), aux ([G...,] P, A), mask ([G...,] P) ->
+    (out ([G...,] out_cap, 3), aux_out ([G...,] out_cap, A),
+    mask_out ([G...,] out_cap)). Each group along the leading axes (a
+    sequence's LiDAR) is downsampled on its own, all in one sort: the group
+    index is the high word of the sort key, so no voxel merges across
+    groups and each group's result equals its own call bit for bit."""
+    lead, P = pts.shape[:-2], pts.shape[-2]
+    G = 1
+    for d in lead:
+        G *= d
+    dev = pts.device
+    h = spatial_hash(floor_div(pts, voxel_size)).reshape(G, P)
+    h = torch.where(mask.reshape(G, P), h, torch.full_like(h, MASK32))
+    gid = torch.arange(G, device=dev)[:, None]
+    key = ((gid << 32) | h).reshape(-1)
 
-    order = torch.argsort(h, stable=True)
-    h_s = h[order]
-    pts_s = pts[order]
-    aux_s = aux[order]
-    ones = mask[order].to(pts.dtype)
+    order = torch.argsort(key, stable=True)
+    key_s = key[order]
+    pts_s = pts.reshape(G * P, 3)[order]
+    aux_s = aux.reshape(G * P, -1)[order]
+    ones = mask.reshape(-1)[order].to(pts.dtype)
 
-    start = torch.ones_like(h_s, dtype=torch.bool)
-    start[1:] = h_s[1:] != h_s[:-1]
-    seg_id = torch.cumsum(start.to(torch.int64), 0) - 1
-    seg = torch.clamp(seg_id, max=out_cap)  # segments past out_cap -> dump
-    lengths = torch.bincount(seg, minlength=out_cap + 1)
+    start = torch.ones_like(key_s, dtype=torch.bool)
+    start[1:] = key_s[1:] != key_s[:-1]
+    seg_id = (torch.cumsum(start.to(torch.int64), 0) - 1).reshape(G, P)
+    seg_id = seg_id - seg_id[:, :1]  # a group's first point starts its segment 0
+    # segments past out_cap -> the group's dump segment out_cap
+    seg = (torch.clamp(seg_id, max=out_cap) + gid * (out_cap + 1)).reshape(-1)
+    lengths = torch.bincount(seg, minlength=G * (out_cap + 1))
 
     def seg_sum(x):
-        return torch.segment_reduce(
-            x, "sum", lengths=lengths, axis=0, unsafe=True, initial=0
-        )[:out_cap]
+        out = torch.segment_reduce(x, "sum", lengths=lengths, axis=0, unsafe=True, initial=0)
+        return out.reshape(*lead, out_cap + 1, *x.shape[1:])[..., :out_cap, :]
 
-    cnt = seg_sum(ones)
+    cnt = seg_sum(ones[:, None])[..., 0]
     sum_xyz = seg_sum(pts_s * ones[:, None])
     sum_aux = seg_sum(aux_s * ones[:, None])
     valid = cnt > 0
     denom = torch.clamp(cnt, min=1.0)
-    return sum_xyz / denom[:, None], sum_aux / denom[:, None], valid
+    return sum_xyz / denom[..., None], sum_aux / denom[..., None], valid

@@ -122,11 +122,10 @@ def group_base(g):
     return float(np.min(np.asarray(g["beg_t"], np.float64)))
 
 
-def _stack_chunk(chunk, dtype, prev_base, device):
-    """Stack host group dicts into one batched MeasureGroup (leading axis
-    K), rebased to per-group time origins in f64 before the cast, and
-    moved to the device in one transfer per field.
-    Returns (device group, per-group bases)."""
+def _chunk_arrays(chunk, dtype, prev_base):
+    """Host group dicts stacked into the MeasureGroup fields as numpy
+    arrays (leading axis K), rebased to per-group time origins in f64
+    before the cast to `dtype`. Returns (field -> array, per-group bases)."""
     bases = np.asarray([group_base(g) for g in chunk], np.float64)
     shifts = np.diff(np.concatenate([[prev_base], bases]))
     pts = np.stack([np.asarray(g["pts"], np.float64) for g in chunk])
@@ -138,18 +137,25 @@ def _stack_chunk(chunk, dtype, prev_base, device):
     beg = np.stack([np.asarray(g["beg_t"], np.float64) for g in chunk]) - bases[:, None]
     end = np.stack([np.asarray(g["end_t"], np.float64) for g in chunk]) - bases[:, None]
 
-    def dev_f(a):
-        return torch.as_tensor(a.astype(dtype)).to(device)
+    def mask(key):
+        return np.stack([np.asarray(g[key], bool) for g in chunk])
 
-    def dev_b(key):
-        return torch.as_tensor(np.stack([np.asarray(g[key], bool) for g in chunk])).to(device)
-
-    out = prop.MeasureGroup(
-        pts=dev_f(pts), pts_mask=dev_b("pts_mask"), beg_t=dev_f(beg), end_t=dev_f(end),
-        imu=dev_f(imu), imu_mask=dev_b("imu_mask"), imu_cont=dev_f(cont),
-        imu_cont_mask=dev_b("imu_cont_mask"), t_shift=dev_f(shifts),
+    arrays = dict(
+        pts=pts.astype(dtype), pts_mask=mask("pts_mask"), beg_t=beg.astype(dtype),
+        end_t=end.astype(dtype), imu=imu.astype(dtype), imu_mask=mask("imu_mask"),
+        imu_cont=cont.astype(dtype), imu_cont_mask=mask("imu_cont_mask"),
+        t_shift=shifts.astype(dtype),
     )
-    return out, bases
+    return arrays, bases
+
+
+def _stack_chunk(chunk, dtype, prev_base, device):
+    """Stack host group dicts into one batched MeasureGroup (leading axis
+    K), rebased to per-group time origins in f64 before the cast, and
+    moved to the device in one transfer per field.
+    Returns (device group, per-group bases)."""
+    arrays, bases = _chunk_arrays(chunk, dtype, prev_base)
+    return prop.MeasureGroup(**{k: torch.as_tensor(a).to(device) for k, a in arrays.items()}), bases
 
 
 _SMALL = ("pos", "quat", "pose_cov", "end_time", "iterations", "n_effective",

@@ -40,7 +40,10 @@ class State(NamedTuple):
 
 
 def where_state(cond, a: State, b: State) -> State:
-    return State(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+    """Field by field: a where cond holds, else b. cond is () or one flag
+    per sequence of a batch (B,)."""
+    return State(*(torch.where(cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim())), x, y)
+                   for x, y in zip(a, b)))
 
 
 def identity_state(num_lidars: int, dtype=torch.float32, device="cuda") -> State:
@@ -99,35 +102,36 @@ def so3_block_starts(L):
 
 
 def boxplus(x: State, dx) -> State:
-    """x ⊞ dx with dx an (n,) tangent vector."""
+    """x ⊞ dx with dx an (..., n) tangent vector (leading axes as x's)."""
     L = x.num_lidars
     dx = dx.to(x.pos.dtype)
     o = 6 + 6 * L
     return State(
-        pos=x.pos + dx[0:3],
-        rot=so3.boxplus(x.rot, dx[3:6]),
-        ext_r=so3.boxplus(x.ext_r, dx[6 : 6 + 3 * L].reshape(L, 3)),
-        ext_t=x.ext_t + dx[6 + 3 * L : 6 + 6 * L].reshape(L, 3),
-        vel=x.vel + dx[o : o + 3],
-        bg=x.bg + dx[o + 3 : o + 6],
-        ba=x.ba + dx[o + 6 : o + 9],
-        grav=s2.s2_boxplus(x.grav, dx[o + 9 : o + 11]),
+        pos=x.pos + dx[..., 0:3],
+        rot=so3.boxplus(x.rot, dx[..., 3:6]),
+        ext_r=so3.boxplus(x.ext_r, dx[..., 6 : 6 + 3 * L].unflatten(-1, (L, 3))),
+        ext_t=x.ext_t + dx[..., 6 + 3 * L : 6 + 6 * L].unflatten(-1, (L, 3)),
+        vel=x.vel + dx[..., o : o + 3],
+        bg=x.bg + dx[..., o + 3 : o + 6],
+        ba=x.ba + dx[..., o + 6 : o + 9],
+        grav=s2.s2_boxplus(x.grav, dx[..., o + 9 : o + 11]),
     )
 
 
 def boxminus(x1: State, x2: State):
-    """(n,) tangent vector x1 ⊟ x2."""
+    """(..., n) tangent vector x1 ⊟ x2."""
     return torch.cat(
         [
             x1.pos - x2.pos,
             so3.boxminus(x1.rot, x2.rot),
-            so3.boxminus(x1.ext_r, x2.ext_r).reshape(-1),
-            (x1.ext_t - x2.ext_t).reshape(-1),
+            so3.boxminus(x1.ext_r, x2.ext_r).flatten(-2),
+            (x1.ext_t - x2.ext_t).flatten(-2),
             x1.vel - x2.vel,
             x1.bg - x2.bg,
             x1.ba - x2.ba,
             s2.s2_boxminus(x1.grav, x2.grav),
-        ]
+        ],
+        dim=-1,
     )
 
 
@@ -135,7 +139,7 @@ def oplus(x: State, f, dt) -> State:
     """Euler step x ⊕ (f dt); only the pos, rot and vel rows of f move."""
     L = x.num_lidars
     return x._replace(
-        pos=x.pos + f[0:3] * dt,
-        rot=so3.boxplus(x.rot, f[3:6] * dt),
-        vel=x.vel + f[6 + 6 * L : 9 + 6 * L] * dt,
+        pos=x.pos + f[..., 0:3] * dt,
+        rot=so3.boxplus(x.rot, f[..., 3:6] * dt),
+        vel=x.vel + f[..., 6 + 6 * L : 9 + 6 * L] * dt,
     )

@@ -3,12 +3,17 @@ the flagship path does not give them: windows of 1, 3, 8, 12 and 208 rows
 (both launch geometries of the fused k-NN window kernel, the wide one
 also at 12 rows, one or two a warp) with distance ties, windows with fewer
 valid lanes than K (lane 0 valid, invalid and dead), all-invalid windows,
-masked-off queries and duplicate rows. The deskew kernel in both layouts
+masked-off queries and duplicate rows; a batch of maps as one flat table,
+with windows that reach the last sequence's last row. The deskew kernel in both layouts
 (three lanes a point with the spline read through the cache, one lane with
 it staged in shared memory) on ragged point counts whose warps hold points
 of two LiDARs, 1 to 32 LiDARs, splines with no and with one valid
 interval, times exactly on the control grid and NaN times, and 3 x 65,536
-points; the layout the wrapper picks by point count; its refusals. k-NN is bit-equal; deskew
+points; the layout the wrapper picks by point count; its refusals. A batch
+of sequences in one launch: each sequence equals its own launch (B = 1)
+and the plain version, with sequences of different spline windows and
+time origins, one whose times are all NaN, and point counts whose warps
+and blocks end inside a sequence. k-NN is bit-equal; deskew
 agrees within atol 2e-5 with equal ok flags (rotation matrices in the
 kernel, quaternions in the plain version). `vh.knn` at K = 5 through the
 kernel equals it through the plain version; the back end's per-cell sums
@@ -262,7 +267,7 @@ def test_deskew_wrapper_picks_the_layout_by_point_count(card, L, N):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     after = deskew.deskew_points.launches_by_shape
-    assert after[L, N, 96] == before.get((L, N, 96), 0) + 2
+    assert after[1, L, N, 96] == before.get((1, L, N, 96), 0) + 2
 
 
 def test_deskew_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -281,3 +286,106 @@ def test_deskew_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         deskew.deskew_points(small[0].double(), *small[1:])
     assert deskew.deskew_points.launches == before
+
+
+def _deskew_batch(L, N, dev):
+    """Four sequences of L LiDARs x N points, each its own points, frames
+    and spline: the full window, no ok interval (num_valid 3), one ok
+    interval (num_valid 4) with its time origin moved, and every time NaN."""
+    from malio_tpu_torch import tree
+
+    seqs = []
+    for b, (num_valid, times) in enumerate(((None, "spread"), (3, "spread"), (4, "first"),
+                                             (None, "nan"))):
+        pts, sp, *frames = _deskew_args(L, N, 64, num_valid, times, dev)
+        if b == 3:
+            pts[..., 3] = float("nan")
+        seqs.append((pts, sp._replace(t0=sp.t0 + 0.0025 * b), *frames))
+    return tree.stack(seqs), seqs
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("L,N", [(3, 4096), (2, 777), (1, 41)])
+def test_deskew_batch_equals_each_sequence(card, L, N, lanes):
+    """One launch over a batch gives every sequence what its own launch
+    gives it, bit for bit, and the plain version's result within atol 2e-5
+    with equal ok flags; ragged N puts warp and block ends inside a
+    sequence (a block never straddles two)."""
+    batch, seqs = _deskew_batch(L, N, card)
+    before = deskew.deskew_points.launches
+    got = deskew._launch(*batch, lanes=lanes)
+    want = deskew.deskew_points_plain(*batch)
+    torch.cuda.synchronize()
+    assert deskew.deskew_points.launches == before + 1
+    for b, args in enumerate(seqs):
+        assert torch.equal(got[b], deskew._launch(*args, lanes=lanes)), b
+    assert torch.equal(got[..., 3], want[..., 3])
+    assert float((got[..., :3] - want[..., :3]).abs().max()) <= 2e-5
+    ok = want[..., 3] == 1
+    assert ok[0].any() and not ok[1].any() and not ok[3].any()
+    assert torch.equal(got[3, ..., :3], batch[0][3, ..., :3])  # NaN times: unchanged
+
+
+def test_deskew_wrapper_counts_batched_shapes(card):
+    batch, _ = _deskew_batch(3, 4096, card)
+    before = dict(deskew.deskew_points.launches_by_shape)
+    deskew.deskew_points(*batch)
+    torch.cuda.synchronize()
+    after = deskew.deskew_points.launches_by_shape
+    assert after[4, 3, 4096, 64] == before.get((4, 3, 4096, 64), 0) + 1
+    assert deskew.lanes_for(4 * 3 * 4096) == 1  # 49,152 points: past THREE_LANES_MAX_POINTS
+
+
+def _batched_map(B, dev, seed=11):
+    rng = np.random.default_rng(seed)
+    maps = []
+    for b in range(B):
+        pts = torch.as_tensor(rng.uniform(-8, 8, size=(3000, 3)).astype(np.float32), device=dev)
+        covs = torch.as_tensor(rng.uniform(0.01, 0.2, size=3000).astype(np.float32), device=dev)
+        maps.append(vh.insert(vh.create(1 << 12, 0.5, torch.float32, dev), pts, covs,
+                              torch.ones(3000, dtype=torch.bool, device=dev)))
+    from malio_tpu_torch import tree
+
+    return tree.stack(maps), rng
+
+
+def test_knn_window_batch_reaches_the_last_row(card):
+    """A batch of tables as one flat (B R) table, windows with rows offset
+    by b R and some reaching the last sequence's last row: bit-equal to
+    the plain version at K = 16 and 5."""
+    B = 3
+    m, rng = _batched_map(B, card)
+    R = m.tab.shape[1]
+    m.tab[-1, -1, :, 0] = 7.0  # the last row of the last table: every slot occupied
+    m.tab[-1, -1, :, 1:4] = torch.as_tensor(rng.uniform(-1, 1, size=(32, 3)).astype(np.float32),
+                                            device=card)
+    m.tab[-1, -1, :, 4] = 0.05
+    qs = torch.as_tensor(rng.uniform(-8, 8, size=(B, 500, 3)).astype(np.float32), device=card)
+    local, alive = vh._window_rows(m, qs, 1)
+    local[-1, ::7, 0] = R - 1
+    alive[-1, ::7, 0] = True
+    tab, rows = vh._batch_rows(m, local)
+    assert int(rows.max()) == B * R - 1
+    V = rows.shape[-1]
+    args = (tab, qs.reshape(-1, 3), rows.reshape(-1, V).contiguous(), alive.reshape(-1, V).contiguous())
+    for K in (16, 5):
+        got = knn.knn_window(*args, K)
+        want = knn.knn_window_plain(*args, K)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert bool((want[2][-500:][::7, 0] < 3.0e38).all())
+
+
+def test_knn_cached_batch_kernel_equals_plain(card):
+    m, rng = _batched_map(3, card, seed=12)
+    qs = torch.as_tensor(np.concatenate([rng.uniform(-8, 8, size=(3, 500, 3)),
+                                         rng.uniform(12, 20, size=(3, 300, 3))], 1)
+                         .astype(np.float32), device=card)
+    kw = dict(radius=1, wide_radius=5, wide_budget=512, cache_k=16)
+    before = dict(knn.knn_window.launches_by_shape)
+    got = vh.knn_cached(m, qs, use_kernel=True, **kw)
+    want = vh.knn_cached(m, qs, use_kernel=False, **kw)
+    after = knn.knn_window.launches_by_shape
+    assert after.get((2400, 8, 16), 0) == before.get((2400, 8, 16), 0) + 1, after
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -23,7 +23,7 @@ from malio_tpu import uncertainty as junc
 from malio_tpu.geometry import se3 as jse3, so3 as jso3
 from malio_tpu.ops.deskew_pallas import deskew_points as jdeskew_pallas
 
-from malio_tpu_torch import interop
+from malio_tpu_torch import interop, tree
 from malio_tpu_torch import propagate as tprop
 from malio_tpu_torch import spline as tspl
 from malio_tpu_torch import uncertainty as tunc
@@ -179,7 +179,7 @@ def test_undistort_matches_jax():
         cfg, *(getattr(jc, f) for f in args), jg, *(getattr(jc, f) for f in rest))
     tc = interop.carry_from_numpy(tp.flat(jc), "cpu")
     tg = interop.group_from_numpy(tp.flat(jg), "cpu")
-    got = tprop.undistort(tcfg, *(getattr(tc, f) for f in args), tg,
-                          *(getattr(tc, f) for f in rest))
+    one = tree.unsqueeze((*(getattr(tc, f) for f in args), tg, *(getattr(tc, f) for f in rest)))
+    got = tree.squeeze(tprop.undistort(tcfg, *one))  # a batch of one
     assert int(np.asarray(want.hist.n)) > 8  # a real history behind the spline
     _close_tree(interop.to_numpy(got), tp.flat(want))

@@ -13,7 +13,7 @@ import torch
 from malio_tpu import state as jst
 from malio_tpu.filter import dynamics as jdyn, esekf as jesekf
 
-from malio_tpu_torch import state as tst, interop
+from malio_tpu_torch import state as tst, interop, tree
 from malio_tpu_torch import measurement as tmeas
 from malio_tpu_torch.config import Config as TConfig
 from malio_tpu_torch.filter import dynamics as tdyn, esekf as tesekf
@@ -134,6 +134,7 @@ def test_spd_inverse_and_small_inverses_match_jax():
 
 
 def _port_scenario(sc):
+    """The scenario as a batch of one: map, scan data and state."""
     tcfg = _port_cfg(sc["cfg"])
     tmap = interop.map_from_numpy(_flat(sc["m"]), "cpu")
     d = _flat(sc["sd"])
@@ -141,7 +142,7 @@ def _port_scenario(sc):
         d[k] = d[k].astype(np.int64)
     tsd = tmeas.ScanData(**{k: torch.as_tensor(v) for k, v in d.items()})
     tx = interop.state_from_numpy(_flat(sc["x"]), "cpu")
-    return tcfg, tmap, tsd, tx
+    return (tcfg, *tree.unsqueeze((tmap, tsd, tx)))
 
 
 @pytest.fixture(scope="module")
@@ -156,12 +157,12 @@ def test_h_share_matches_jax(scenario):
     tcfg, tmap, tsd, tx = _port_scenario(sc)
     t_h, t_cache0 = tmeas.make_h_share(tcfg, tmap, tsd, tx)
     for name in ("nn_cnt", "cand_valid", "searched", "n_miss"):
-        np.testing.assert_array_equal(getattr(t_cache0, name).numpy(),
+        np.testing.assert_array_equal(getattr(t_cache0, name)[0].numpy(),
                                       np.asarray(getattr(sc["cache0"], name)), err_msg=name)
-    _close(t_cache0.cand_pts.numpy(), sc["cache0"].cand_pts)
+    _close(t_cache0.cand_pts[0].numpy(), sc["cache0"].cand_pts)
     for search in (True, False):
         jres, jc = sc["h_share"](sc["x"], jnp.asarray(search), sc["cache0"])
-        tres, tc = t_h(tx, search, t_cache0)
+        tres, tc = tree.squeeze(t_h(tx, search, t_cache0))
         assert bool(tres.valid) == bool(jres.valid)
         np.testing.assert_array_equal(tres.mask.numpy(), np.asarray(jres.mask))
         for name in ("h", "H", "R"):
@@ -187,10 +188,10 @@ def test_update_iterated_matches_jax(scenario):
         max_iter=cfg.max_iteration, limit=cfg.converge_limit,
     )
     t_h, t_cache0 = tmeas.make_h_share(tcfg, tmap, tsd, tx)
-    tres = tesekf.update_iterated(
-        tst.boxplus(tx, torch.as_tensor(dx0)), torch.as_tensor(P0), t_h, t_cache0,
+    tres = tree.squeeze(tesekf.update_iterated(
+        tst.boxplus(tx, torch.as_tensor(dx0)[None]), torch.as_tensor(P0)[None], t_h, t_cache0,
         max_iter=cfg.max_iteration, limit=cfg.converge_limit,
-    )
+    ))
     assert bool(jres.valid) and tres.valid
     assert tres.iterations == int(jres.iterations)
     _same_state(tres.x, jres.x)
@@ -200,8 +201,8 @@ def test_update_iterated_matches_jax(scenario):
     # Newton-Schulz path on both sides and lands on the same posterior
     jres2 = jesekf.update_iterated(jres.x, jres.P, sc["h_share"], sc["cache0"],
                                    max_iter=cfg.max_iteration, Pi0=jres.Pi)
-    tres2 = tesekf.update_iterated(tres.x, tres.P, t_h, t_cache0,
-                                   max_iter=cfg.max_iteration, Pi0=tres.Pi)
+    tres2 = tree.squeeze(tesekf.update_iterated(*tree.unsqueeze((tres.x, tres.P)), t_h, t_cache0,
+                                                max_iter=cfg.max_iteration, Pi0=tres.Pi[None]))
     assert tres2.iterations == int(jres2.iterations)
     _same_state(tres2.x, jres2.x)
     _close(tres2.P.numpy(), jres2.P)

@@ -33,7 +33,8 @@ def test_sources_import_no_jax():
     files = sorted((ROOT / "malio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
-    for mod in ("online", "checkpoint", "ba", "smoother", "posegraph", "segment"):
+    for mod in ("online", "checkpoint", "ba", "smoother", "posegraph", "segment", "batched",
+                "tree", "linalg"):
         assert f"malio_tpu_torch/{mod}.py" in names, mod
     bad = [str(f.relative_to(ROOT)) for f in files if FORBIDDEN.search(f.read_text())]
     assert not bad, bad

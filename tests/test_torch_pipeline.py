@@ -21,7 +21,8 @@ from malio_tpu import runner as jrunner
 from malio_tpu.config import Config as JConfig, city_config as jcity
 
 import malio_tpu_torch  # noqa: F401
-from malio_tpu_torch import checkpoint as tckpt, online as tonline, posegraph as tpg
+from malio_tpu_torch import batched as tbatched, checkpoint as tckpt, online as tonline
+from malio_tpu_torch import posegraph as tpg
 from malio_tpu_torch import interop, pipeline as tpipe, propagate as tprop, runner as trunner
 from malio_tpu_torch import smoother as tsm, state as tst
 from malio_tpu_torch.filter import dynamics as tdyn
@@ -163,6 +164,9 @@ _ON_THE_CARD = {
     "PoseGraphBackend": (lambda **kw: tpg.PoseGraphBackend(capacity=4, cloud_points=8, **kw),
                          lambda r: r._edge_sets()[0].zq),
     "checkpoint.load": (_load_map, lambda r: r.tab),
+    "batched.flagship_benchmark": (lambda **kw: tbatched.flagship_benchmark(batch=1, **kw), None),
+    "batched.synthetic_batched_benchmark": (
+        lambda **kw: tbatched.synthetic_batched_benchmark(batch=1, **kw), None),
 }
 
 
