@@ -41,8 +41,18 @@ every sequence's ATE and drops, three sequences against their own runs
 (1e-3 m), a profile of 5 steady batched rounds at B = 16 (its launches
 against the main path's profile, the same round at B = 1), and both
 kernels checked and timed at the batched shapes (the k-NN over 16
-maps as one flat table, the deskew at 16 x 3 x 4096). Any failure exits
-non-zero; the last line is the device summary.
+maps as one flat table, the deskew at 16 x 3 x 4096). The map insert's
+write, the merge kernel, is held bit-equal to its plain version and to
+index_copy and timed at benchmarks/micro_r4b.py's shapes, on the insert's
+own arguments (the main path's last round, the batch's, a world
+correction's re-insert of the whole map) and at edge cases; the plain
+rounds run once more with only the merge plain, bit-equal to the main
+path. The dataset cell writes the flagship sequence as a City
+file-player tree (io/export) and runs it through `python -m
+malio_tpu_torch.run_dataset` (TUM, ATE / RPE, PCD map read back equal)
+and DatasetPlayer (equal to the arrival-ordered feed within 1e-5 m); last
+bench_torch.py's kernel times. Any failure exits non-zero; the last line
+is the device summary.
 
     python3 chip_smoke.py                               # the smoke run
     python3 chip_smoke.py --save-stage-inputs FILE      # ... keeping the map, the
@@ -54,6 +64,9 @@ non-zero; the last line is the device summary.
                                                         # package in TREE
     python3 chip_smoke.py --trace-check SECONDS [--lead-in S]  # count profiler
                                                         # traces that lose device events
+    python3 chip_smoke.py --batch-bits                  # the first operation whose
+                                                        # bits differ between a B = 16
+                                                        # round and a sequence's own
 
 Writes per-round and build details to chiprun_out/chip_smoke.json.
 """
@@ -119,6 +132,15 @@ TRACES = []  # one entry per profiler trace: calls (or rounds), events, markers 
 # max |deskew kernel - plain| for coordinates under 64 m (about 5 ulp of
 # them); it doubles with the ulp past that (deskew_atol)
 DESKEW_ATOL = 2e-5
+# the merge kernel at benchmarks/micro_r4b.py's shapes: tables of 2^17,
+# 2^19 and 2^21 rows of 5 f32, 12,288 sorted unique updates
+MERGE_LOG_T = (17, 19, 21)
+MERGE_N = 12288
+# the dataset cell: the flagship sequence written as a City file-player tree
+DATASET_SECONDS = 8.0
+DATASET_SENSORS = ["ouster", "livox_avia", "livox_tele"]
+PLAYER_TOL_M = 1e-5  # player against the arrival-ordered feed (tests/test_player.py:119)
+BITS_ROUNDS = 3  # rounds of the --batch-bits search
 
 
 def log(*a):
@@ -143,17 +165,18 @@ def call_ms(fn, n=100, warm=3):
     return a.elapsed_time(b) / n
 
 
-def _trace(fn, n, warm):
+def _trace(fn, n, warm, lead_in_s):
     """Device activities of one torch.profiler session, in start order:
     LEAD_IN_ADDS one-element adds the session may drop, warm-up calls,
-    then n calls with a marker kernel before each and after the last."""
+    then n calls with a marker kernel before each and after the last;
+    `lead_in_s` of host time before the first launch and after the last."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_LEAD_IN_S)
+        time.sleep(lead_in_s)
         for _ in range(LEAD_IN_ADDS):
             x.add_(1.0)
         for _ in range(warm):
@@ -164,6 +187,7 @@ def _trace(fn, n, warm):
             fn()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        time.sleep(lead_in_s)
     return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)),
                   key=lambda e: e.time_range.start)
@@ -179,11 +203,13 @@ def device_events(fn, n, warm=3):
     their host launches and drops those that then fall before the trace
     start, up to all of them (`--trace-check` counts how often). The
     lead-in keeps the calls away from the start, and a trace is taken
-    again, up to TRACE_ATTEMPTS times, unless it holds all n + 1 markers
-    and the same number of activities in every call; each retake is
-    logged and counted."""
+    again, up to TRACE_ATTEMPTS times with the lead-in doubled each time,
+    unless it holds all n + 1 markers and the same number of activities
+    in every call; each retake is logged and counted. (Late in a long run
+    on an H100 with torch 2.11 one batched k-NN trace lost the same 36 of
+    120 events five times in a row at a 0.1 s lead-in.)"""
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        ev = _trace(fn, n, warm)
+        ev = _trace(fn, n, warm, TRACE_LEAD_IN_S * 2 ** (attempt - 1))
         marks = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
         calls = [[(e.name, e.time_range.elapsed_us()) for e in ev[a + 1 : b]]
                  for a, b in zip(marks, marks[1:])]
@@ -824,23 +850,24 @@ def flagship_groups(cfg, duration, seed, traj_kwargs=None):
     return assemble_groups(cfg, imu, rounds), traj
 
 
+def _wrappers():
+    from malio_tpu_torch.ops import deskew, knn, merge
+
+    return dict(knn_window=knn.knn_window, deskew=deskew.deskew_points,
+                merge_rows=merge.merge_rows)
+
+
 def reset_launches():
     """Every kernel wrapper's launch count to 0."""
-    from malio_tpu_torch.ops import deskew, knn
-
-    knn.knn_window.launches = 0
-    knn.knn_window.launches_by_shape = {}
-    deskew.deskew_points.launches = 0
-    deskew.deskew_points.launches_by_shape = {}
+    for fn in _wrappers().values():
+        fn.launches = 0
+        fn.launches_by_shape = {}
 
 
-def read_launches(path, kernels=("knn_window", "deskew")):
+def read_launches(path, kernels=("knn_window", "deskew", "merge_rows")):
     """The launches of the run just driven, by kernel and shape; fails if
     a kernel of the path was launched no time."""
-    from malio_tpu_torch.ops import deskew, knn
-
-    counts = dict(knn_window=dict(knn.knn_window.launches_by_shape),
-                  deskew=dict(deskew.deskew_points.launches_by_shape))
+    counts = {name: dict(fn.launches_by_shape) for name, fn in _wrappers().items()}
     for name in kernels:
         if not counts[name]:
             raise AssertionError(f"{path} path: kernel {name} was launched no time ({counts})")
@@ -890,19 +917,6 @@ def scan_steps_phase(cfg, groups, n_init, res, dev="cuda"):
     return dict(rounds=len(r["t"]), wall_ms=wall), counts
 
 
-def _arrival_order(imu, rounds):
-    """IMU samples and scans as a live rig delivers them (a scan arrives at
-    its end time), in the form OnlineEstimator takes."""
-    events = [("imu", row[0], row) for row in imu]
-    for rnd in rounds:
-        for l, s in enumerate(rnd):
-            rel = s["pts"].copy()
-            rel[:, 3] -= s["beg_t"]
-            events.append(("scan", s["end_t"], (l, s["beg_t"], rel, s["end_t"] - s["beg_t"])))
-    events.sort(key=lambda e: e[1])
-    return events
-
-
 def online_phase(cfg, imu, rounds, res, ate_main, traj, dev="cuda"):
     """The live path: the flagship sequence pushed through OnlineEstimator
     in arrival order, polled after every push that fused a round, then
@@ -912,14 +926,14 @@ def online_phase(cfg, imu, rounds, res, ate_main, traj, dev="cuda"):
     synchronises)."""
     import numpy as np
     import torch
-    from malio_tpu_torch import online
+    from malio_tpu_torch import online, run_dataset
     from malio_tpu_torch.eval.ate import ate_rmse
 
     reset_launches()
     est = online.OnlineEstimator(cfg, dtype=torch.float32, device=dev)
     outs, latency, poll_ms = [], [], []
     t_all = time.perf_counter()
-    for kind, _, p in _arrival_order(imu, rounds):
+    for kind, _, p in run_dataset.arrival_events(imu, rounds):
         t0 = time.perf_counter()
         if kind == "imu":
             est.push_imu(p[0], p[1:4], p[4:7])
@@ -1189,6 +1203,7 @@ def batched_phase(floor, smi, main_profile):
     from malio_tpu_torch import measurement as meas
     from malio_tpu_torch.io.assemble import assemble_groups
     from malio_tpu_torch.map import voxel_hash as vh
+    from malio_tpu_torch.ops import merge
 
     cfg = batched._flagship_config(4096, 1 << 21, False)
     kw = dict(points_per_lidar=4096, passes=BATCH_PASSES, chunk=BATCH_CHUNK)
@@ -1226,8 +1241,12 @@ def batched_phase(floor, smi, main_profile):
     v_base = len(vh._svx_ball_offsets(cfg.knn_radius))
     knn_key = (BATCH * cfg.max_meas_points, v_base, meas.CAND_K)
     desk_key = (BATCH, cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity)
-    if not (paths["batched"]["knn_window"].get(knn_key) and paths["batched"]["deskew"].get(desk_key)):
-        raise AssertionError(f"batched path: no launch at {knn_key} / {desk_key}: {paths['batched']}")
+    merge_key = (BATCH * cfg.map_capacity, BATCH * cfg.max_meas_points)
+    pb = paths["batched"]
+    if not (pb["knn_window"].get(knn_key) and pb["deskew"].get(desk_key)
+            and pb["merge_rows"].get(merge_key)):
+        raise AssertionError(f"batched path: no launch at {knn_key} / {desk_key} / {merge_key}: "
+                             f"{pb}")
 
     # three sequences of the batch against their own B = 1 runs
     checks = {}
@@ -1262,9 +1281,10 @@ def batched_phase(floor, smi, main_profile):
     rec16 = {}
     vh.knn_cached = recording_knn_cached
     try:
-        prof16 = profile_phase(batched_drive(cfg, seqs, rec16),
-                               1e3 * BATCH / out["batched"]["median"],
-                               label=f"batched profile B={BATCH}")
+        with _Recording(merge, "merge_rows") as ins16:
+            prof16 = profile_phase(batched_drive(cfg, seqs, rec16),
+                                   1e3 * BATCH / out["batched"]["median"],
+                                   label=f"batched profile B={BATCH}")
     finally:
         vh.knn_cached = knn_cached
     # each sequence of the batch runs its own iteration count; the loop runs
@@ -1285,6 +1305,8 @@ def batched_phase(floor, smi, main_profile):
     rows = knn_phase(m, last["queries"], last["qmask"], cfg, meas.CAND_K, suffix="_batched")
     rows.append(deskew_phase("deskew_batched", deskew_inputs_batch(
         BATCH, cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity, seed=1), floor))
+    rows.append(merge_phase("merge_rows_batched", *ins16.args, floor))
+    del ins16.args
     for r in rows:
         r["path"] = "batched"
     return out, paths, rows
@@ -1334,6 +1356,514 @@ def sum_order_check():
     return int(((d * d).sum(-1) != knn.sqdist(p, q)).sum()), p.shape[0]
 
 
+def _bits(t):
+    """t's bits as integers of its width (NaNs compare equal to themselves)."""
+    import torch
+
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def merge_sorted_inputs(T, N=MERGE_N, seed=0):
+    """benchmarks/micro_r4b.py's inputs at table size T: N sorted unique
+    rows drawn from numpy's generator at `seed` and normal records; the
+    table is normal too (micro_r4b's is zeros), so a lost row shows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rec = torch.as_tensor(rng.normal(size=(N, 5)), dtype=torch.float32, device="cuda")
+    idx = torch.as_tensor(np.sort(rng.choice(T, N, replace=False)), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(T, 5, generator=g, device="cuda"), idx, rec
+
+
+def merge_edge_inputs(T, seed=3):
+    """Edge cases of the merge at table size T: the first and the last row,
+    unique rows in random order mixed with entries below 0 and at or past
+    T, nothing valid, no update at all, and row counts whose size in words
+    leaves a tail past the 16-byte copy (f32 and f64 rows)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def case(tab, rows):
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device="cuda")
+        rec = torch.randn(idx.shape[0], tab.shape[1], generator=g, device="cuda",
+                          dtype=torch.float64).to(tab.dtype)
+        return tab, idx, rec
+
+    tab = torch.randn(T, 5, generator=g, device="cuda")
+    inner = rng.choice(np.arange(1, T - 1), 2046, replace=False)
+    mixed = np.concatenate([rng.choice(T, 4096, replace=False), np.full(500, -1),
+                            np.full(300, T), rng.integers(T, 2 * T, 200)])
+    rng.shuffle(mixed)
+    invalid = np.concatenate([np.full(1000, -1), rng.integers(T, 2 * T, 1000)])
+    rng.shuffle(invalid)
+    small = lambda n, dt: torch.randn(n, 5, generator=g, device="cuda", dtype=dt)
+    return {
+        "merge_rows_first_last_row": case(tab, np.concatenate([[T - 1], inner, [0]])),
+        "merge_rows_unsorted_invalid": case(tab, mixed),
+        "merge_rows_all_invalid": case(tab, invalid),
+        "merge_rows_no_update": case(tab, []),
+        "merge_rows_tail_f32": case(small(1001, torch.float32), np.concatenate(
+            [[1000, 0], rng.choice(999, 300, replace=False) + 1])),
+        "merge_rows_tail_f64": case(small(4099, torch.float64), np.concatenate(
+            [[4098, 0, -1], rng.choice(4097, 900, replace=False) + 1])),
+    }
+
+
+def merge_check(name, tab, idx, rec):
+    """The merge kernel against merge_rows_plain and against
+    tab.index_copy on the valid entries, bit for bit. Returns the valid
+    entries and their count."""
+    import torch
+    from malio_tpu_torch.ops import merge
+
+    got = merge.merge_rows(tab, idx, rec)
+    want = merge.merge_rows_plain(tab, idx, rec)
+    valid = (idx >= 0) & (idx < tab.shape[0])
+    iv, rv = idx[valid].contiguous(), rec[valid].contiguous()
+    lib = tab.index_copy(0, iv, rv)
+    _sync()
+    for what, w in (("merge_rows_plain", want), ("index_copy", lib)):
+        if not torch.equal(_bits(got), _bits(w)):
+            bad = int((_bits(got) != _bits(w)).any(-1).sum())
+            raise AssertionError(f"{name}: kernel differs from {what} in {bad} rows")
+    return iv, rv, int(valid.sum())
+
+
+def merge_phase(name, tab, idx, rec, floor):
+    """The merge kernel on (tab, idx, rec): checked bit-equal to its plain
+    version and to index_copy, timed alone on the device (its copy and
+    scatter launches, CUPTI), per wrapper call, and against the plain
+    version and index_copy (on the valid entries); the bound is the bytes
+    over the memory rate: the table read and written, idx and rec read."""
+    from malio_tpu_torch.ops import merge
+
+    iv, rv, n_valid = merge_check(name, tab, idx, rec)
+    T, W = tab.shape
+    N = idx.shape[0]
+    fn = lambda: merge.merge_rows(tab, idx, rec)
+    calls = device_events(fn, 50)
+    per = [sum(us for nm, us in c if "merge_rows" in nm) for c in calls]
+    launched = {sum(1 for nm, _ in c if "merge_rows" in nm) for c in calls}
+    if launched != {2 if N else 1}:
+        raise AssertionError(f"{name}: {launched} merge_rows device events per call")
+    ms = statistics.median(per) / 1e3
+    c_ms = call_ms(fn)
+    p_ms, p_ops = device_ms(lambda: merge.merge_rows_plain(tab, idx, rec))
+    p_call = call_ms(lambda: merge.merge_rows_plain(tab, idx, rec), n=10)
+    l_ms, _ = device_ms(lambda: tab.index_copy(0, iv, rv))
+    l_call = call_ms(lambda: tab.index_copy(0, iv, rv), n=30)
+    nbytes = (2 * tab.numel() * tab.element_size() + idx.numel() * 8
+              + rec.numel() * rec.element_size())
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"kernel {name} T={T} N={N} ({n_valid} valid) {tab.dtype}: bit-equal to plain and to "
+        f"index_copy; device {ms:.5f} ms (copy + scatter), call {c_ms:.4f} ms (plain device "
+        f"{p_ms:.4f} ms in {p_ops:.0f} device ops, call {p_call:.4f} ms; index_copy device "
+        f"{l_ms:.4f} ms, call {l_call:.4f} ms); bound {b_ms:.5f} ms by {b_by}, "
+        f"{b_ms + floor:.5f} ms with the launch floor")
+    return dict(
+        name=name, route="cuda", source="malio_tpu_torch/csrc/merge_rows.cu",
+        replaces="benchmarks/micro_r4b.py:92", shape=f"T={T} N={N} W={W} {str(tab.dtype)[6:]}",
+        shape_key=(T, N), counter="merge_rows", valid=n_valid, max_abs_err=0.0, ms=ms,
+        call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call, plain_device_ops=p_ops, bound_ms=b_ms,
+        bound_by=b_by, bound_with_floor_ms=b_ms + floor, bytes=nbytes, library_ms=l_ms,
+        library_call_ms=l_call,
+    )
+
+
+class _Recording:
+    """Swaps a module's function for one that keeps the arguments of its
+    last call (no copies) and calls it; the original comes back on exit."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.args = owner, name, None
+        self.fn = getattr(owner, name)
+
+    def __enter__(self):
+        def recording(*a):
+            self.args = a
+            return self.fn(*a)
+
+        setattr(self.owner, self.name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def merge_kernel_phase(path_args, floor):
+    """The merge kernel at micro_r4b's shapes (T = 2^17, 2^19, 2^21 rows, N
+    = 12,288 sorted unique updates), on the insert's own arguments of the
+    paths (`path_args`: name -> (tab, idx, rec)) and on the edge cases."""
+    rows = [merge_phase(f"merge_rows_micro_T{lt}", *merge_sorted_inputs(1 << lt), floor)
+            for lt in MERGE_LOG_T]
+    rows += [merge_phase(name, *args, floor) for name, args in path_args.items()]
+    rows += [merge_phase(name, *args, floor)
+             for name, args in merge_edge_inputs(1 << MERGE_LOG_T[-1]).items()]
+    return rows
+
+
+def insert_plain_check(cfg, groups, n_init, res):
+    """The main path's first PLAIN_ROUNDS rounds with both other kernels
+    on but the insert's write through merge_rows_plain: positions, times
+    and map sizes bit-equal to the kernel run's (the write is a copy)."""
+    import torch
+    from malio_tpu_torch import runner
+    from malio_tpu_torch.ops import merge
+
+    kernel = merge.merge_rows
+    merge.merge_rows = merge.merge_rows_plain
+    try:
+        r = runner.run_sequence(cfg, groups[: n_init + PLAIN_ROUNDS], dtype=torch.float32,
+                                device="cuda")
+    finally:
+        merge.merge_rows = kernel
+    k = len(r["t"])
+    for f in ("t", "pos", "quat", "map_size"):
+        _same(f"insert through merge_rows_plain, {f}", r[f], res[f][:k])
+    log(f"insert through merge_rows_plain, first {k} rounds: positions, times and map sizes "
+        f"bit-equal to the kernel run")
+    return k
+
+
+def dataset_phase(out_dir, smi, dev="cuda"):
+    """The dataset entry point: io/export.write_dataset writes the flagship
+    3-LiDAR sequence (seed 0, DATASET_SECONDS) with its ground truth as a
+    City file-player tree; `python -m malio_tpu_torch.run_dataset` replays
+    it (decode, grouping, run_sequence, TUM, ATE / RPE against
+    Groundtruth.txt, the live map as PCD, which read_pcd must read back
+    equal to the map); DatasetPlayer(realtime=False) plays it into an
+    OnlineEstimator, whose trajectory must equal the arrival-ordered feed
+    of the loaded sequence within PLAYER_TOL_M. Launch counts per path."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from malio_tpu_torch import online, run_dataset
+    from malio_tpu_torch.config import city_config, flagship_config
+    from malio_tpu_torch.eval import ate
+    from malio_tpu_torch.io import dataset as ds, export, native, pcd
+    from malio_tpu_torch.io.player import DatasetPlayer
+    from malio_tpu_torch.map import voxel_hash as vh
+
+    fcfg = flagship_config()
+    root = out_dir / "dataset_city_synthetic"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    imu, rounds, traj = flagship_sequence(fcfg, DATASET_SECONDS, seed=0)
+    export.write_dataset(root, imu, rounds, DATASET_SENSORS, traj=traj)
+    write_s = time.perf_counter() - t0
+    files = [p for p in root.rglob("*") if p.is_file()]
+    tree = dict(files=len(files), bytes=sum(p.stat().st_size for p in files), write_s=write_s)
+    # the City configuration at the flagship's widths: 4096 raw points a
+    # LiDAR, a 2^21-slot map; the rest as run_dataset's `city` gives it
+    overrides = dict(max_raw_points=fcfg.max_raw_points, max_points_per_scan=fcfg.max_raw_points,
+                     map_capacity=fcfg.map_capacity)
+    cfg = city_config(**overrides)
+    argv = [str(root), "--config", "city", "--max-points", str(fcfg.max_raw_points),
+            "--map-capacity", str(fcfg.map_capacity), "--out", str(root / "trajectory.txt"),
+            "--save-map", str(root / "map.pcd")] + (["--cpu"] if dev == "cpu" else [])
+    paths = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    s = run_dataset.main(argv)
+    wall = _ms_since(t0) / 1e3
+    paths["dataset"] = read_launches("dataset")
+    res = s["res"]
+    rows = np.loadtxt(root / "trajectory.txt")
+    if rows.shape != (s["rounds"], 8) or not np.isfinite(rows).all():
+        raise AssertionError(f"dataset: TUM file of shape {rows.shape} for {s['rounds']} rounds")
+    if not (np.isfinite(s.get("ate_m", np.nan)) and s["ate_m"] <= ATE_GATE_M):
+        raise AssertionError(f"dataset: ATE {s.get('ate_m')} over {ATE_GATE_M} m")
+    back = pcd.read_pcd(root / "map.pcd")
+    mpts, mcovs = vh.extract_points(res["carry"].map)
+    _same("dataset map PCD read back", back, np.concatenate([mpts, mcovs[:, None]], 1))
+    drops = int(res["map_dropped"][-1]), int(res["n_meas_dropped"].max())
+
+    reset_launches()
+    t0 = time.perf_counter()
+    player = DatasetPlayer(root, cfg, DATASET_SENSORS, realtime=False, device=dev)
+    try:
+        pres = player.run()
+    finally:
+        player.close()
+    player_s = _ms_since(t0) / 1e3
+    paths["player"] = read_launches("player")
+    imu2, rounds2 = ds.load_sequence(root, DATASET_SENSORS, list(cfg.lid_type),
+                                     list(cfg.point_filter_num), list(cfg.n_scans), cfg.blind)
+    # the player dispatches a scan at its file stamp, the scan's begin time
+    # (tests/test_player.py:94-105): the feed pushes in that order
+    events = [("imu", row[0], row) for row in imu2]
+    for rnd in rounds2:
+        for l, sc in enumerate(rnd):
+            rel = sc["pts"].copy()
+            rel[:, 3] -= sc["beg_t"]
+            events.append(("scan", sc["beg_t"], (l, sc["beg_t"], rel, sc["end_t"] - sc["beg_t"])))
+    events.sort(key=lambda e: e[1])
+    reset_launches()
+    est = online.OnlineEstimator(cfg, dtype=torch.float32, device=dev)
+    recs = []
+    for kind, _, p in events:
+        if kind == "imu":
+            est.push_imu(p[0], p[1:4], p[4:7])
+        else:
+            est.push_scan(p[0], p[1], p[2], duration=p[3])
+        recs.extend(est.poll())
+    est.flush()
+    recs.extend(est.poll())
+    paths["dataset_online"] = read_launches("dataset_online")
+    fpos = np.asarray([r["pos"] for r in recs])
+    if len(recs) != pres["n_rounds"] or pres["n_dropped_scans"]:
+        raise AssertionError(f"player: {pres['n_rounds']} rounds ({pres['n_dropped_scans']} "
+                             f"dropped scans), the online feed {len(recs)}")
+    dpos = float(np.abs(pres["pos"] - fpos).max())
+    dt = float(np.abs(pres["t"] - np.asarray([r["t"] for r in recs])).max())
+    if not (dpos <= PLAYER_TOL_M and dt <= 1e-9):
+        raise AssertionError(f"player vs online feed: max |dpos| {dpos} m, |dt| {dt} s")
+    player_ate = ate.ate_rmse(pres["pos"], traj.pos(pres["t"]))
+    # the decoders that ran are io/dataset's numpy ones; the C++ library
+    # (native/libmalio_native.so) is checked against them where it loads
+    nat = dict(available=native.available())
+    if nat["available"]:
+        fl = ds.list_scan_files(root, "ouster")[:8]
+        out, counts, durs = native.batch_decode(fl, "ouster", cfg.point_filter_num[0],
+                                                time_unit_scale=ds.TIME_UNIT_SCALE[0])
+        for i, f in enumerate(fl):
+            want, dur = ds.decode_ouster(f, cfg.point_filter_num[0], 0.0, ds.TIME_UNIT_SCALE[0])
+            if counts[i] != len(want) or not np.allclose(out[i, : counts[i]], want, atol=1e-12,
+                                                         rtol=0):
+                raise AssertionError(f"native decoder differs from decode_ouster on {f.name}")
+        nat["checked_files"] = len(fl)
+    shutil.rmtree(root / "sensor_data")  # 18 MB of records; the TUM file and the map stay
+    out = dict(seconds=DATASET_SECONDS, tree=tree, rounds=s["rounds"], wall_s=wall,
+               scans_per_s=s["rounds"] / wall, ate_m=s["ate_m"], rot_ate_rad=s["rot_ate_rad"],
+               rpe_m=s["rpe_m"], rpe_rad=s["rpe_rad"], map_points=s["map_points"],
+               map_dropped=drops[0], meas_dropped=drops[1], player_rounds=pres["n_rounds"],
+               player_s=player_s, player_scans_per_s=pres["n_rounds"] / player_s,
+               player_vs_feed_max_dpos_m=dpos, player_ate_m=player_ate, native_decoder=nat,
+               decoders="numpy (io/dataset.py)", gpu=smi)
+    log(f"dataset ({DATASET_SECONDS:.0f} s, {tree['files']} files, {tree['bytes']} B): replay "
+        f"{s['rounds']} rounds in {wall:.1f} s ({out['scans_per_s']:.2f} scans/s), ATE "
+        f"{s['ate_m']:.6f} m / {np.degrees(s['rot_ate_rad']):.3f} deg, RPE {s['rpe_m']:.4f} m; "
+        f"map PCD ({s['map_points']} voxels) read back equal; drops {drops}; player "
+        f"{pres['n_rounds']} rounds in {player_s:.1f} s, max |dpos| {dpos:.3g} m against the "
+        f"online feed (limit {PLAYER_TOL_M}); native decoder {nat}; {smi}")
+    return out, paths
+
+
+def bench_kernels_phase(smi):
+    """bench_torch.py's insert_ms, nn_ms and iekf_ms through
+    metrics.kernel_timer at its flagship shape."""
+    import bench_torch
+
+    reset_launches()
+    times = bench_torch.kernel_times(bench_torch.bench_config())
+    counts = read_launches("bench_kernels")
+    log(f"bench_torch kernel times (kernel_timer): {times}; {smi}")
+    return times, counts
+
+
+class _OpLog:
+    """A TorchFunctionMode that passes every torch operation's outputs to
+    `store(key, tensor)` under key (caller file:line in the package,
+    operation[.output], occurrence), keeping what it returns, in execution
+    order. With `per_sequence` = B, each matrix product (f32 or f64) with
+    an operand whose leading axis is B runs as B products, one per
+    sequence on fresh copies of its operands (linalg.mm's rule on the
+    CPU), and the products so split are counted."""
+
+    PRODUCTS = ("matmul", "__matmul__", "__rmatmul__", "bmm")
+    SKIP = ("empty", "empty_like", "empty_strided", "new_empty")
+
+    def __init__(self, store, per_sequence=None):
+        self.store, self.per_sequence = store, per_sequence
+        self.ops, self.order, self.split, self._seen = {}, [], 0, {}
+
+    def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+
+        outer = self
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                return outer._call(func, args, kwargs or {})
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+    def _call(self, func, args, kwargs):
+        import torch
+
+        name = getattr(func, "__name__", str(func))
+        B = self.per_sequence
+        batched = lambda x: torch.is_tensor(x) and x.dim() >= 3 and x.shape[0] == B
+        if (B and name in self.PRODUCTS and len(args) == 2 and not kwargs
+                and all(torch.is_tensor(x) and x.is_floating_point() for x in args)
+                and any(batched(x) for x in args)):
+            part = lambda x, k: x[k : k + 1].clone() if batched(x) else x
+            out = torch.cat([func(part(args[0], k), part(args[1], k)) for k in range(B)])
+            self.split += 1
+        else:
+            out = func(*args, **kwargs)
+        if name in self.SKIP:
+            return out
+        outs = [("", out)] if torch.is_tensor(out) else [
+            (f".{i}", o) for i, o in enumerate(out) if torch.is_tensor(o)
+        ] if isinstance(out, (tuple, list)) else []
+        if not outs:
+            return out
+        f = sys._getframe(2)
+        while f is not None and "malio_tpu_torch" not in f.f_code.co_filename:
+            f = f.f_back
+        if f is None:
+            return out
+        loc = f"{pathlib.Path(f.f_code.co_filename).relative_to(ROOT)}:{f.f_lineno}"
+        for suffix, o in outs:
+            n = self._seen.get((loc, name + suffix), 0)
+            self._seen[loc, name + suffix] = n + 1
+            key = (loc, name + suffix, n)
+            kept = self.store(key, o.detach())
+            if kept is not None:
+                self.ops[key] = kept
+                self.order.append(key)
+        return out
+
+
+def _sequence_slice(t16, shape1, b, B):
+    """Sequence b's part of a B-sequence output whose one-sequence twin has
+    `shape1`: the same tensor (no batch axis), row b of a leading batch
+    axis, or the b-th of B equal parts of a sequence-major flat layout.
+    None when the shapes do not say."""
+    if tuple(t16.shape) == tuple(shape1):
+        return t16
+    if t16.dim() >= 1 and len(shape1) >= 1 and t16.shape[0] == B and shape1[0] == 1 \
+            and tuple(t16.shape[1:]) == tuple(shape1[1:]):
+        return t16[b : b + 1]
+    n1 = 1
+    for d in shape1:
+        n1 *= d
+    if n1 and t16.numel() == B * n1:
+        return t16.reshape(-1)[b * n1 : (b + 1) * n1].reshape(shape1)
+    return None
+
+
+def _tensors(tree):
+    import torch
+
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def batch_bits_main(rounds=BITS_ROUNDS, dev="cuda", B=BATCH, check=BATCH_CHECK, points=4096,
+                    map_slots=1 << 21):
+    """Where a sequence of a B = 16 batched round leaves the bits of its own
+    round (the batch of one): sequences BATCH_CHECK alone and the flagship
+    batch (seeds 0-15) step the same rounds from their initial carries;
+    every torch operation of each round is logged (_OpLog) and sequence b's
+    part of each B = 16 output is held against its own round's output at
+    the same call site and occurrence. Per round and sequence: the first
+    differing operations in execution order, and whether the carry is
+    still bit-equal. Then the same with every matrix product of the batch
+    (f32 and f64) split into one product per sequence on fresh copies, with
+    the products it split counted (each adds about 3 B launches). The
+    insert's write goes through the merge kernel, checked against its
+    plain version on each round's arguments. Writes
+    chiprun_out/batch_bits.json."""
+    import torch
+
+    if dev == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
+    from malio_tpu_torch import batched, pipeline
+    from malio_tpu_torch.ops import _build, merge
+
+    smi = gpu_name_and_limit() if dev == "cuda" else "cpu"
+    log(smi)
+    if dev == "cuda":
+        _build.build_all(["knn_window", "deskew", "merge_rows"])
+    cfg = batched._flagship_config(points, map_slots, False)
+    seqs = batched._build_sequences(cfg, B, BATCH_PROFILE_SECONDS, points,
+                                    batched._flagship_world(cfg))
+    report = dict(gpu=smi, rounds=rounds, sequences=list(check))
+    for variant, split in (("as_is", None), ("per_sequence_products", B)):
+        c16, ch16, _ = batched._prepare(cfg, seqs, torch.float32, 1, dev)
+        singles = {b: batched._prepare(cfg, [seqs[b]], torch.float32, 1, dev)[:2] for b in check}
+        carries = {b: s[0] for b, s in singles.items()}
+        out_rounds = []
+        for k in range(rounds):
+            logs1 = {}
+            for b in check:
+                with _OpLog(lambda key, t: t.clone()) as ol:
+                    carries[b], _ = pipeline.scan_steps(cfg, carries[b], singles[b][1][k][0],
+                                                        device=dev)
+                logs1[b] = ol
+
+            def store(key, t):
+                kept = {}
+                for b, o1 in logs1.items():
+                    ref = o1.ops.get(key)
+                    sl = None if ref is None else _sequence_slice(t, ref.shape, b, B)
+                    if sl is not None and sl.dtype == ref.dtype:
+                        kept[b] = sl.clone()
+                return kept or None
+
+            with _Recording(merge, "merge_rows") as ins, _OpLog(store, split) as ol16:
+                c16, _ = pipeline.scan_steps(cfg, c16, ch16[k][0], device=dev)
+            merge_check(f"batch_bits round {k}", *ins.args)
+            del ins.args
+            per_seq = {}
+            for b, o1 in logs1.items():
+                diffs, compared = [], 0
+                for i, key in enumerate(o1.order):
+                    s = ol16.ops.get(key, {}).get(b)
+                    # integer outputs hold row offsets and sequence ids that
+                    # differ by design for b > 0: floats only
+                    if s is None or not s.is_floating_point():
+                        continue
+                    compared += 1
+                    r = o1.ops[key]
+                    if not torch.equal(_bits(s), _bits(r)):
+                        d = (s.double() - r.double()).abs()
+                        diffs.append(dict(order=i, at=key[0], op=key[1], occurrence=key[2],
+                                          shape=list(r.shape), dtype=str(r.dtype)[6:],
+                                          entries=int((_bits(s) != _bits(r)).sum()),
+                                          max_abs=float(d.nan_to_num(0.0).max())))
+                pairs = [(_sequence_slice(a, x.shape, b, B), x)
+                         for a, x in zip(_tensors(c16), _tensors(carries[b]))]
+                same = all(s is not None and torch.equal(_bits(s), _bits(x)) for s, x in pairs)
+                per_seq[b] = dict(ops=len(o1.order), compared=compared, differing=len(diffs),
+                                  first=diffs[:12], carry_bit_equal=same)
+                first = diffs[0] if diffs else None
+                log(f"batch_bits {variant} round {k} sequence {b}: {len(diffs)} of {compared} "
+                    f"compared outputs differ, carry bit-equal {same}; first: "
+                    + (f"{first['at']} {first['op']} {first['shape']} {first['dtype']} max "
+                       f"|diff| {first['max_abs']}" if first else "none"))
+            out_rounds.append(dict(split_products=ol16.split, sequences=per_seq))
+            log(f"batch_bits {variant} round {k}: {ol16.split} products split per sequence")
+            del logs1, ol, ol16
+        report[variant] = out_rounds
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "batch_bits.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({v: [{b: (q["differing"], q["carry_bit_equal"])
+                           for b, q in r["sequences"].items()} for r in report[v]]
+                      for v in ("as_is", "per_sequence_products")}))
+    return 0
+
+
 def _clone(tree):
     """A copy of a nested NamedTuple of tensors."""
     if hasattr(tree, "_fields"):
@@ -1365,7 +1895,7 @@ def main(save_stage_inputs=None):
     from malio_tpu_torch.eval.ate import ate_rmse
     from malio_tpu_torch.io.assemble import assemble_groups
     from malio_tpu_torch.map import voxel_hash as vh
-    from malio_tpu_torch.ops import _build, deskew, knn
+    from malio_tpu_torch.ops import _build, deskew, knn, merge
 
     t_start = time.perf_counter()
     elapsed = {}  # seconds since the start at the end of each phase
@@ -1382,7 +1912,7 @@ def main(save_stage_inputs=None):
     report = dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    names = ["knn_window", "deskew"]
+    names = ["knn_window", "deskew", "merge_rows"]
     _build.build_all(names)
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s (parallel nvcc, sm_90a)")
@@ -1432,8 +1962,10 @@ def main(save_stage_inputs=None):
     reset_launches()
     t0 = time.perf_counter()
     try:
-        res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda", callback=tick)
-        torch.cuda.synchronize()
+        with _Recording(merge, "merge_rows") as main_merge:
+            res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda",
+                                      callback=tick)
+            torch.cuda.synchronize()
     finally:
         vh.knn_cached = knn_cached
         prop.deskew_ops = deskew
@@ -1445,8 +1977,9 @@ def main(save_stage_inputs=None):
     n_desk = deskew.deskew_points.launches
     desk_by_shape = paths["main"]["deskew"]
     rounds = len(res["t"])
-    if n_base == 0 or n_wide == 0 or n_desk == 0:
-        raise AssertionError(f"main path skipped a kernel: knn_window {by_shape}, deskew {n_desk}")
+    if n_base == 0 or n_wide == 0 or n_desk == 0 or merge.merge_rows.launches != rounds:
+        raise AssertionError(f"main path skipped a kernel: knn_window {by_shape}, deskew {n_desk}, "
+                             f"merge_rows {paths['main']['merge_rows']} in {rounds} rounds")
     warm = 8
     steady = (rounds - warm) / (stamps[-1] - stamps[warm - 1])
     ate = ate_rmse(res["pos"], traj.pos(res["t"]))
@@ -1456,7 +1989,8 @@ def main(save_stage_inputs=None):
     log(f"ATE {ate:.6f} m (gate {ATE_GATE_M}), map_dropped {int(res['map_dropped'][-1])}, "
         f"meas_dropped max {int(res['n_meas_dropped'].max())}, nn_miss p50 {miss_p50}, "
         f"map_size {int(res['map_size'][-1])}, launches knn_window {by_shape} "
-        f"(Q, V, K): n, deskew {desk_by_shape} (B, L, N, C): n")
+        f"(Q, V, K): n, deskew {desk_by_shape} (B, L, N, C): n, merge_rows "
+        f"{paths['main']['merge_rows']} (T, N): n")
     if not (np.isfinite(ate) and ate <= ATE_GATE_M):
         raise AssertionError(f"ATE {ate} is not finite or exceeds {ATE_GATE_M} m")
     if not np.all(np.isfinite(res["pos"])) or res["pos"].shape != (rounds, 3):
@@ -1490,6 +2024,15 @@ def main(save_stage_inputs=None):
                      deskew_inputs(L, Config.max_raw_points, Config.spline_capacity, seed=1), floor),
     ]
     report["deskew_layout_sweep"] = deskew_layout_sweep()
+    # the merge kernel: micro_r4b's shapes, the main path's last insert, a
+    # world correction's re-insert of the whole map (the back end's
+    # transform), the edge cases
+    dq = torch.tensor([np.cos(0.05), 0.0, 0.0, np.sin(0.05)], dtype=torch.float32, device="cuda")
+    with _Recording(merge, "merge_rows") as corr:
+        vh.transform(m, dq, torch.tensor([0.3, -0.2, 0.05], device="cuda"))
+    merge_kernel_rows = merge_kernel_phase({"merge_rows_path": main_merge.args,
+                                     "merge_rows_transform": corr.args}, floor)
+    del main_merge.args, corr.args
 
     # ---- the whole k-NN stage, kernel and plain ----
     stage = {flag: stage_ms(vh, meas, m, queries, qmask, cfg, flag) for flag in (True, False)}
@@ -1503,8 +2046,14 @@ def main(save_stage_inputs=None):
 
     plain_cfg = dataclasses.replace(cfg, knn_kernel=False, deskew_kernel=False)
     n_init = len(groups) - rounds  # groups consumed by the IMU initialisation
-    res_p = runner.run_sequence(plain_cfg, groups[: n_init + PLAIN_ROUNDS], dtype=torch.float32,
-                                device="cuda")
+    merge_rows_kernel = merge.merge_rows
+    merge.merge_rows = merge.merge_rows_plain
+    try:
+        res_p = runner.run_sequence(plain_cfg, groups[: n_init + PLAIN_ROUNDS],
+                                    dtype=torch.float32, device="cuda")
+    finally:
+        merge.merge_rows = merge_rows_kernel
+    report["insert_plain_rounds"] = insert_plain_check(cfg, groups, n_init, res)
     k = len(res_p["t"])
     dpos = float(np.abs(res_p["pos"] - res["pos"][:k]).max())
     log(f"plain versions, first {k} rounds: max |pos(kernels) - pos(plain)| = {dpos:.3g} m "
@@ -1533,15 +2082,20 @@ def main(save_stage_inputs=None):
     report["batched"], batch_paths, batch_rows = batched_phase(floor, smi, report["profile"])
     paths.update(batch_paths)
     done("batched")
+    report["dataset"], dataset_paths = dataset_phase(out_dir, smi)
+    paths.update(dataset_paths)
+    done("dataset")
+    report["bench_kernels"], paths["bench_kernels"] = bench_kernels_phase(smi)
+    done("bench kernel times")
 
-    kernels = knn_rows + desk_rows + batch_rows
+    kernels = knn_rows + desk_rows + merge_kernel_rows + batch_rows
     for r in kernels:
         r["floor_ms"] = floor
         if "K" in r:
             key, counts = (r["Q"], r["V"], r["K"]), "knn_window"
         else:
-            key, counts = r.pop("shape_key"), "deskew"
-        r["launches_by_path"] = {p: c[counts].get(key, 0) for p, c in paths.items()}
+            key, counts = r.pop("shape_key"), r.pop("counter", "deskew")
+        r["launches_by_path"] = {p: c.get(counts, {}).get(key, 0) for p, c in paths.items()}
         # the launches of the row's own path (the main path, or the batched
         # path for the rows at the batched shapes) at the row's shape
         r["launches"] = r["launches_by_path"][r.get("path", "main")]
@@ -1583,7 +2137,12 @@ if __name__ == "__main__":
                     help="only count profiler traces that lose device events, for SECONDS")
     ap.add_argument("--lead-in", metavar="S", type=float, default=TRACE_LEAD_IN_S,
                     help="host seconds before a trace's first call (with --trace-check)")
+    ap.add_argument("--batch-bits", action="store_true",
+                    help="only find the first operation whose bits differ between a B = 16 "
+                         "batched round and a sequence's own round")
     a = ap.parse_args()
+    if a.batch_bits:
+        sys.exit(batch_bits_main())
     if a.knn_stage:
         sys.exit(knn_stage_main(a.knn_stage, a.inputs))
     if a.deskew_kernel:

@@ -101,18 +101,23 @@ def _build_sequences(cfg, batch, duration, points_per_scan, seq_kwargs):
 
 
 def _init_seq(cfg, groups, dtype, device):
-    """IMU-initialize one sequence; returns (carry, post-init groups, base)."""
+    """IMU-initialize one sequence; returns (carry, post-init groups, base).
+    A sequence whose initialisation never completes is seeded, as the
+    reference seeds it, from the unfinished statistics over all its groups
+    (start 0, the last IMU sample of its last group)."""
     init = runner.ImuInitializer()
+    start = 0
     prev_last = np.zeros(7)
     for gi, g in enumerate(groups):
         m = np.asarray(g["imu_mask"])
         last = np.asarray(g["imu"], np.float64)[m.nonzero()[0][-1]] if m.any() else prev_last
         if gi > 0 and init.done:
-            b0 = runner.group_base(groups[gi])
-            return runner.seed_carry(cfg, init, prev_last, b0, dtype, device), groups[gi:], b0
+            start = gi
+            break
         init.update(np.asarray(g["imu"], np.float64), g["imu_mask"])
         prev_last = last
-    raise ValueError("the IMU initialisation never completed: the sequence is too short")
+    b0 = runner.group_base(groups[start])
+    return runner.seed_carry(cfg, init, prev_last, b0, dtype, device), groups[start:], b0
 
 
 def _stack_batched_chunks(streams, bases, n_rounds, chunk, np_dtype, device):

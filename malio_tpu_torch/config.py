@@ -135,6 +135,63 @@ def city_config(**overrides) -> Config:
     return Config(**base)
 
 
+def city_ouster_config(**overrides) -> Config:
+    """Single-Ouster subset of the City rig (BASELINE config 1: the
+    CPU-runnable minimum slice)."""
+    base = city_config().__dict__ | dict(
+        num_lidars=1,
+        lid_type=(3,),
+        n_scans=(128,),
+        point_filter_num=(8,),
+        extrinsic_T=(0.215, 0.0, 0.018),
+        extrinsic_R=(1.0, 0, 0, 0),
+    )
+    base.update(overrides)
+    return Config(**base)
+
+
+def urbannav_config(**overrides) -> Config:
+    """2-LiDAR UrbanNav configuration (config/UrbanNav.yaml:1-48 plus the
+    launch overrides, launch/mapping_urban.launch:9-15 — identical to the
+    City launch: max_iteration=3, cube 1000, plane_th 0.4, filter 0.5;
+    the parameters.cpp defaults (4 / 200 / 0.1) are never what runs)."""
+    base = dict(
+        max_iteration=3,
+        cube_len=1000.0,
+        plane_th=0.4,
+        filter_size_surf=0.5,
+        filter_size_map=0.5,
+        num_lidars=2,
+        lid_type=(2, 2),
+        n_scans=(32, 16),
+        point_filter_num=(4, 4),
+        blind=0.0,
+        timestamp_unit=0,
+        acc_cov=0.011197412605492375,
+        gyr_cov=0.010270904839480961,
+        b_acc_cov=0.00011751767903346351,
+        b_gyr_cov=0.000091355383994881894,
+        det_range=100.0,
+        extrinsic_T=(0.0, 0.0, 0.28, 0.3237, -0.0012, 0.0791),
+        extrinsic_R=(1, 0, 0, 0, 0.8849, 0.0027, 0.4654, -0.0182),
+        cov_threshold=0.5,
+        point_cov_max=0.00125,
+        point_cov_min=0.00075,
+        plane_cov_max=1.0,
+        plane_cov_min=0.8,
+        localize_cov_max=2.0,
+        localize_cov_min=0.3,
+        localize_thresh_max=0.7,
+        localize_thresh_min=0.2,
+        max_imu_per_group=128,  # 400 Hz IMU
+        traj_capacity=256,
+        knn_wide_radius=5,
+        knn_wide_budget=1024,
+    )
+    base.update(overrides)
+    return Config(**base)
+
+
 def flagship_config(points_per_lidar: int = 4096, map_slots: int = 1 << 21,
                     single_search: bool = False, **overrides) -> Config:
     """City 3-LiDAR flagship shape: the City estimator parameters with the

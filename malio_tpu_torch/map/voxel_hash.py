@@ -29,7 +29,7 @@ import torch
 from .. import tree
 from ..device import resolve_device
 from ..geometry import so3
-from ..ops import kernel_enabled, knn as knn_ops
+from ..ops import kernel_enabled, knn as knn_ops, merge as merge_ops
 from ..ops.knn import sqdist as _sqdist, topk_extract as _topk_extract, topk_min  # noqa: F401
 from ..preprocess import MASK32, mul32
 
@@ -223,13 +223,14 @@ def insert(m: VoxelHashMap, pts, covs, mask) -> VoxelHashMap:
     writes = upd | fits | evict
     lane = torch.where(upd, mlane, torch.where(evict, vlane, clane))
     slot = grow * SLOTS + lane
-    tgt = torch.where(writes, slot, torch.full_like(slot, B * T))  # B T = dump row
-    flat = torch.cat([m.tab.reshape(B * T, 5), torch.zeros((1, 5), dtype=dtype, device=dev)])
-    flat[tgt] = rec_s
+    # the writes are unique; a lane that writes nothing targets -1, which
+    # the merge skips (csrc/merge_rows.cu on the card)
+    tgt = torch.where(writes, slot, torch.full_like(slot, -1))
+    tab = merge_ops.merge_rows(m.tab.reshape(B * T, 5), tgt, rec_s)
     dropped = torch.sum((over & ~evict).reshape(B, N), dim=-1).to(torch.int32)
     evicted = torch.sum(evict.reshape(B, N), dim=-1).to(torch.int32)
     return m._replace(
-        tab=flat[: B * T].reshape(B, R, SLOTS, 5),
+        tab=tab.reshape(B, R, SLOTS, 5),
         n_dropped=m.n_dropped + dropped,
         n_evicted=m.n_evicted + evicted,
     )

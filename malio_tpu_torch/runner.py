@@ -104,13 +104,16 @@ def seed_carry(cfg, init: ImuInitializer, prev_last_imu, base0: float, dtype, de
     """The first fused round's carry once the IMU statistics are done:
     state, covariance and process noise from them, and the last IMU
     sample before that round with its stamp moved onto the round's time
-    origin base0 (times are rebased per group)."""
+    origin base0 (times are rebased per group). The stamp is moved in f64
+    before the cast, as the JAX live path does (malio_tpu/online.py:266-267):
+    an f32 stamp near 1.7e9 s would sit on a 128 s grid."""
     x0 = initial_state(cfg, init, dtype, device)
     P0 = initial_covariance(cfg, dtype, device)
     Q = process_noise(cfg, init, dtype, device)
     carry = pipeline.init_carry(cfg, x0, P0, Q, dtype, device)
-    last_imu = torch.as_tensor(np.asarray(prev_last_imu, np.float64), dtype=dtype, device=device)
-    last_imu[0] += torch.tensor(-base0, dtype=dtype, device=device)
+    last = np.array(prev_last_imu, np.float64)
+    last[0] -= base0
+    last_imu = torch.as_tensor(last, dtype=dtype, device=device)
     return carry._replace(
         mean_acc_norm=torch.tensor(np.linalg.norm(init.mean_acc), dtype=dtype, device=device),
         last_imu=last_imu,

@@ -17,7 +17,12 @@ and blocks end inside a sequence. k-NN is bit-equal; deskew
 agrees within atol 2e-5 with equal ok flags (rotation matrices in the
 kernel, quaternions in the plain version). `vh.knn` at K = 5 through the
 kernel equals it through the plain version; the back end's per-cell sums
-are the same bits on every call.
+are the same bits on every call. The merge kernel (the insert's table
+write) equals its plain version and index_copy bit for bit: the first
+and the last row, unsorted rows mixed with entries outside the table,
+nothing valid, no update, f32 and f64 rows, tables whose size leaves a
+tail past the 16-byte copy, a 2^21-row table; the insert through it equals
+the insert through the plain version; its refusals.
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
@@ -32,7 +37,7 @@ from malio_tpu_torch import ba, posegraph
 from malio_tpu_torch import spline as spl
 from malio_tpu_torch.geometry import se3, so3
 from malio_tpu_torch.map import voxel_hash as vh
-from malio_tpu_torch.ops import deskew, knn
+from malio_tpu_torch.ops import deskew, knn, merge
 
 pytestmark = pytest.mark.cuda
 
@@ -389,3 +394,80 @@ def test_knn_cached_batch_kernel_equals_plain(card):
     assert after.get((2400, 8, 16), 0) == before.get((2400, 8, 16), 0) + 1, after
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _merge_case(T, rows, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+    tab = torch.as_tensor(rng.normal(size=(T, 5)), dtype=dtype, device=dev)
+    idx = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+    rec = torch.as_tensor(rng.normal(size=(len(rows), 5)), dtype=dtype, device=dev)
+    return tab, idx, rec
+
+
+def _merge_rows_cases(T, rng):
+    mixed = np.concatenate([rng.choice(T, T // 3, replace=False), [-1, -1, -7], [T, T + 5]])
+    rng.shuffle(mixed)
+    inner = rng.choice(np.arange(1, T - 1), min(T - 2, 300), replace=False) if T > 2 else []
+    return {
+        "first_last": np.concatenate([[T - 1], inner, [0]]) if T > 1 else np.zeros(1, np.int64),
+        "unsorted_invalid": mixed,
+        "all_invalid": np.array([-1, T, 2 * T, -3]),
+        "none": np.zeros(0, np.int64),
+        "every_row": rng.permutation(T),
+    }
+
+
+@pytest.mark.parametrize("T", [1, 7, 1001, 4096, 1 << 21])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_merge_rows_kernel_bit_equal_to_plain(card, T, dtype):
+    rng = np.random.default_rng(T)
+    for name, rows in _merge_rows_cases(T, rng).items():
+        tab, idx, rec = _merge_case(T, rows, dtype, T + len(rows), card)
+        before = merge.merge_rows.launches_by_shape.get((T, len(rows)), 0)
+        got = merge.merge_rows(tab, idx, rec)
+        want = merge.merge_rows_plain(tab, idx, rec)
+        ok = (idx >= 0) & (idx < T)
+        lib = tab.index_copy(0, idx[ok], rec[ok])
+        torch.cuda.synchronize()
+        assert got.data_ptr() != tab.data_ptr(), name
+        assert torch.equal(got, want), name
+        assert torch.equal(got, lib), name
+        assert merge.merge_rows.launches_by_shape[T, len(rows)] == before + 1
+
+
+def test_insert_through_merge_kernel_equals_plain(card, monkeypatch):
+    """A map whose rows fill (drops), then new voxels with low covariances
+    (evictions): the insert through the kernel and through
+    merge_rows_plain give the same table and counters."""
+    rng = np.random.default_rng(21)
+    batches = [(rng.uniform(-2, 2, size=(4000, 3)), rng.uniform(0.01, 0.2, size=4000)),
+                (rng.uniform(5, 9, size=(40, 3)), np.full(40, 0.001))]
+    args = [tuple(torch.as_tensor(a.astype(np.float32), device=card) for a in b) for b in batches]
+
+    def fill():
+        m = vh.create(1 << 10, 0.25, torch.float32, card)
+        for p, c in args:
+            m = vh.insert(m, p, c, torch.ones(c.shape, dtype=torch.bool, device=card))
+        return m
+
+    got = fill()
+    monkeypatch.setattr(merge, "merge_rows", merge.merge_rows_plain)
+    want = fill()
+    assert torch.equal(got.tab, want.tab)
+    assert int(got.n_evicted) == int(want.n_evicted) > 0
+    assert int(got.n_dropped) == int(want.n_dropped) > 0
+
+
+def test_merge_rows_refuses_what_the_kernel_does_not_take(card):
+    tab, idx, rec = _merge_case(64, [3, 9], torch.float32, 0, card)
+    with pytest.raises(ValueError):
+        merge.merge_rows(tab.t(), idx, rec)  # not contiguous
+    with pytest.raises(ValueError):
+        merge.merge_rows(tab, idx.to(torch.int32), rec)
+    with pytest.raises(ValueError):
+        merge.merge_rows(tab, idx, rec.double())
+    with pytest.raises(ValueError):
+        merge.merge_rows(tab, idx.cpu(), rec)
+    with pytest.raises(ValueError):
+        merge.merge_rows(tab.to(torch.float16)[:, :3].contiguous(), idx,
+                         rec.to(torch.float16)[:, :3].contiguous())  # 6-byte rows
