@@ -42,13 +42,14 @@ every sequence's ATE and drops, three sequences against their own runs
 against the main path's profile, the same round at B = 1), and both
 kernels checked and timed at the batched shapes (the k-NN over 16
 maps as one flat table, the deskew at 16 x 3 x 4096). The map insert's
-write, the merge kernel, is held bit-equal to its plain version and to
-index_copy and timed at benchmarks/micro_r4b.py's shapes, on the insert's
-own arguments (the main path's last round, the batch's, a world
-correction's re-insert of the whole map) and at edge cases; the plain
-rounds run once more with only the merge plain, bit-equal to the main
-path. The dataset cell writes the flagship sequence as a City
-file-player tree (io/export) and runs it through `python -m
+write, the merge kernel (one launch a call), is held bit-equal to its
+plain version and to index_copy and timed beside index_copy and
+tab.clone() at benchmarks/micro_r4b.py's shapes, on the insert's own
+arguments (the main path's last round, the batch's, a world correction's
+re-insert of the whole map) and at edge cases, and checked at the edges
+of its copy's tiles; the plain rounds run once more with only the merge
+plain, bit-equal to the main path. The dataset cell writes the flagship
+sequence as a City file-player tree (io/export) and runs it through `python -m
 malio_tpu_torch.run_dataset` (TUM, ATE / RPE, PCD map read back equal)
 and DatasetPlayer (equal to the arrival-ordered feed within 1e-5 m); last
 bench_torch.py's kernel times. Any failure exits non-zero; the last line
@@ -62,6 +63,9 @@ is the device summary.
     python3 chip_smoke.py --deskew-kernel TREE [--inputs FILE] [--outputs FILE]
                                                         # time the deskew kernel of the
                                                         # package in TREE
+    python3 chip_smoke.py --merge-kernel TREE           # time the merge kernel of
+                                                        # the package in TREE beside
+                                                        # this one's
     python3 chip_smoke.py --trace-check SECONDS [--lead-in S]  # count profiler
                                                         # traces that lose device events
     python3 chip_smoke.py --batch-bits                  # the first operation whose
@@ -71,6 +75,7 @@ is the device summary.
 Writes per-round and build details to chiprun_out/chip_smoke.json.
 """
 import argparse
+import collections
 import json
 import pathlib
 import statistics
@@ -136,6 +141,15 @@ DESKEW_ATOL = 2e-5
 # 2^19 and 2^21 rows of 5 f32, 12,288 sorted unique updates
 MERGE_LOG_T = (17, 19, 21)
 MERGE_N = 12288
+# the insert's shapes on the paths, for --merge-kernel: (table rows T,
+# updates N, valid updates) as PR 6's smoke run on an H100 met them (the
+# main path's last insert, a world correction's re-insert of the whole map,
+# the batched insert of 16 maps)
+MERGE_PATH_SHAPES = {
+    "merge_rows_path": (1 << 21, 9984, 551),
+    "merge_rows_transform": (1 << 21, 1 << 21, 38600),
+    "merge_rows_batched": (16 << 21, 16 * 9984, 30884),
+}
 # the dataset cell: the flagship sequence written as a City file-player tree
 DATASET_SECONDS = 8.0
 DATASET_SENSORS = ["ouster", "livox_avia", "livox_tele"]
@@ -193,6 +207,23 @@ def _trace(fn, n, warm, lead_in_s):
                   key=lambda e: e.time_range.start)
 
 
+def marked_calls(ev, n):
+    """The calls of a marked trace of n calls: `ev` is its device
+    activities in start order as (name, microseconds); a call's are those
+    between two consecutive markers. Returns the calls that hold the most
+    common number of activities, and whether the trace is whole (all
+    n + 1 markers, every call the same number). A call that lost a marker
+    or an activity holds another number and is left out."""
+    marks = [i for i, (nm, _) in enumerate(ev) if "spin_kernel" in nm]
+    calls = [ev[a + 1 : b] for a, b in zip(marks, marks[1:])]
+    sizes = collections.Counter(len(c) for c in calls)
+    whole = len(marks) == n + 1 and len(sizes) == 1
+    if not calls:
+        return [], whole
+    common = sizes.most_common(1)[0][0]
+    return [c for c in calls if len(c) == common], whole
+
+
 def device_events(fn, n, warm=3):
     """For each of n calls of fn, the (name, microseconds) of its device
     activities (kernels, copies, memsets) from torch.profiler's CUPTI
@@ -205,32 +236,39 @@ def device_events(fn, n, warm=3):
     lead-in keeps the calls away from the start, and a trace is taken
     again, up to TRACE_ATTEMPTS times with the lead-in doubled each time,
     unless it holds all n + 1 markers and the same number of activities
-    in every call; each retake is logged and counted. (Late in a long run
-    on an H100 with torch 2.11 one batched k-NN trace lost the same 36 of
-    120 events five times in a row at a 0.1 s lead-in.)"""
+    in every call; each retake is logged and counted. Late in a long run
+    on an H100 with torch 2.11 a batched k-NN trace lost its first 35 or
+    36 of 120 events in five traces in a row, whatever the lead-in: from
+    the first retake on, a trace whose whole calls (marked_calls) number
+    at least n / 2 is kept, with only those calls."""
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        ev = _trace(fn, n, warm, TRACE_LEAD_IN_S * 2 ** (attempt - 1))
-        marks = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
-        calls = [[(e.name, e.time_range.elapsed_us()) for e in ev[a + 1 : b]]
-                 for a, b in zip(marks, marks[1:])]
-        sizes = sorted({len(c) for c in calls})
-        ok = len(marks) == n + 1 and len(sizes) == 1
-        TRACES.append(dict(calls=n, device_events=len(ev), markers=len(marks),
-                           events_per_call=sizes, ok=ok))
-        if ok:
+        ev = [(e.name, e.time_range.elapsed_us())
+              for e in _trace(fn, n, warm, TRACE_LEAD_IN_S * 2 ** (attempt - 1))]
+        calls, whole = marked_calls(ev, n)
+        markers = sum("spin_kernel" in nm for nm, _ in ev)
+        kept = whole or (attempt > 1 and len(calls) >= n / 2)
+        TRACES.append(dict(calls=n, device_events=len(ev), markers=markers, ok=whole,
+                           whole_calls=len(calls), kept=kept))
+        if whole:
+            return calls
+        if kept:
+            log(f"torch.profiler trace {attempt} lost device events ({len(ev)} recorded, "
+                f"{markers} of {n + 1} markers); kept its {len(calls)} whole calls")
             return calls
         log(f"torch.profiler trace {attempt} of {TRACE_ATTEMPTS} lost device events "
-            f"({len(ev)} recorded, {len(marks)} of {n + 1} markers, {sizes} per call); "
+            f"({len(ev)} recorded, {markers} of {n + 1} markers, {len(calls)} whole calls); "
             f"taking it again")
     raise AssertionError(f"torch.profiler lost device events in {TRACE_ATTEMPTS} traces in a row")
 
 
 def kernel_ms(fn, name, n=50):
     """The device duration of one launch of the kernel whose name holds
-    `name`: median over n calls of fn, each of which launches it once."""
-    ds = [us for call in device_events(fn, n) for nm, us in call if name in nm]
-    if len(ds) != n:
-        raise AssertionError(f"{name}: {len(ds)} device events for {n} calls")
+    `name`: median over the n calls of fn (the whole calls of a trace that
+    lost some), each of which launches it once."""
+    calls = device_events(fn, n)
+    ds = [us for call in calls for nm, us in call if name in nm]
+    if len(ds) != len(calls):
+        raise AssertionError(f"{name}: {len(ds)} device events for {len(calls)} calls")
     return statistics.median(ds) / 1e3
 
 
@@ -238,7 +276,7 @@ def device_ms(fn, n=10):
     """Device time of one call of fn (the sum of its kernels' and copies'
     durations, mean over n calls) and its device activities per call."""
     calls = device_events(fn, n)
-    return sum(us for c in calls for _, us in c) / n / 1e3, len(calls[0])
+    return sum(us for c in calls for _, us in c) / len(calls) / 1e3, len(calls[0])
 
 
 def bound(nbytes, nops):
@@ -669,6 +707,72 @@ def deskew_kernel_main(tree, inputs, outputs):
         out[name] = row
     if first and kept is None:
         torch.save(results, first)
+    out["traces"], out["trace_retakes"] = len(TRACES), [t for t in TRACES if not t["ok"]]
+    print(json.dumps(out))
+    return 0
+
+
+def _tree_module(tree, name):
+    """Module `name` of the package malio_tpu_torch in checkout `tree`,
+    imported under a name of its own beside this checkout's package (its
+    kernels build into that checkout's _build/)."""
+    import importlib
+    import importlib.util
+
+    pkg = pathlib.Path(tree).resolve() / "malio_tpu_torch"
+    alias = "_tree_malio_tpu_torch"
+    if alias not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        sys.modules[alias] = mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.{name}")
+
+
+def merge_kernel_main(tree):
+    """Time the merge kernel of the package in `tree` (for example the
+    parent, unpacked by `git archive` into _local/parent) beside this
+    checkout's, in turns (tree, this, this, tree), on seeded inputs at the
+    paths' insert shapes (MERGE_PATH_SHAPES) and at micro_r4b's. Each
+    result of either kernel is checked bit-equal to merge_rows_plain."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from malio_tpu_torch.ops import _build, merge
+
+    other = _tree_module(tree, "ops.merge")
+    t0 = time.perf_counter()
+    _build.build_all(["merge_rows"])
+    other._build.build_all(["merge_rows"])
+    smi = gpu_name_and_limit()
+    log(f"{smi}; both merge kernels built in {time.perf_counter() - t0:.1f} s")
+    cases = {name: merge_path_inputs(*shape) for name, shape in MERGE_PATH_SHAPES.items()}
+    cases.update({f"merge_rows_micro_T{lt}": merge_sorted_inputs(1 << lt) for lt in MERGE_LOG_T})
+    out = dict(tree=str(tree), package=str(pathlib.Path(other.__file__).resolve().parents[1]),
+               gpu=smi)
+    for name, (tab, idx, rec) in cases.items():
+        want = merge.merge_rows_plain(tab, idx, rec)
+        valid = (idx >= 0) & (idx < tab.shape[0])
+        n_valid = int(valid.sum())
+        row = dict(shape=f"T={tab.shape[0]} N={idx.shape[0]} valid={n_valid}",
+                   tree_ms=[], this_ms=[], tree_events=None, this_events=None)
+        for who, mod in (("tree", other), ("this", merge), ("this", merge), ("tree", other)):
+            fn = lambda m=mod: m.merge_rows(tab, idx, rec)
+            if not torch.equal(_bits(fn()), _bits(want)):
+                raise AssertionError(f"{name}: the {who} kernel differs from merge_rows_plain")
+            ms, row[f"{who}_events"] = merge_device_ms(fn)
+            row[f"{who}_ms"].append(ms)
+        iv, rv = idx[valid].contiguous(), rec[valid].contiguous()
+        row["library_ms"], _ = device_ms(lambda: tab.index_copy(0, iv, rv))
+        row["clone_ms"], _ = device_ms(tab.clone)
+        nbytes = merge_bytes(tab.shape[0], idx.shape[0], n_valid, 5 * tab.element_size())
+        row["bound_ms"], _ = bound(nbytes, 0)
+        log(f"{name} {row['shape']}: tree {row['tree_ms']} ms ({row['tree_events']} events a "
+            f"call), this {row['this_ms']} ms ({row['this_events']}), index_copy "
+            f"{row['library_ms']:.5f}, clone {row['clone_ms']:.5f}, bound {row['bound_ms']:.5f} ms")
+        out[name] = row
     out["traces"], out["trace_retakes"] = len(TRACES), [t for t in TRACES if not t["ok"]]
     print(json.dumps(out))
     return 0
@@ -1379,6 +1483,85 @@ def merge_sorted_inputs(T, N=MERGE_N, seed=0):
     return torch.randn(T, 5, generator=g, device="cuda"), idx, rec
 
 
+def merge_bytes(T, N, n_valid, row_bytes):
+    """The least bytes the merge moves: the table's rows that no update
+    overwrites read once, the valid records read once, the table written
+    once, idx (8 B an entry) read once."""
+    return (T - n_valid) * row_bytes + n_valid * row_bytes + T * row_bytes + N * 8
+
+
+def merge_path_inputs(T, N, n_valid, seed=0):
+    """Seeded inputs of an insert's shape: N entries, n_valid of them
+    unique rows in ascending order at random places among dead ones (-1),
+    as the insert sends them; normal table and records."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    idx = np.full(N, -1, np.int64)
+    idx[np.sort(rng.choice(N, n_valid, replace=False))] = np.sort(
+        rng.choice(T, n_valid, replace=False))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(T, 5, generator=g, device="cuda"), torch.as_tensor(idx, device="cuda"),
+            torch.randn(N, 5, generator=g, device="cuda"))
+
+
+def merge_device_ms(fn, n=50):
+    """Device time of one merge call (the sum of its merge_rows kernels'
+    CUPTI events, median over n calls) and its merge_rows events a call."""
+    calls = device_events(fn, n)
+    per = [sum(us for nm, us in c if "merge_rows" in nm) for c in calls]
+    events = sorted({sum(1 for nm, _ in c if "merge_rows" in nm) for c in calls})
+    return statistics.median(per) / 1e3, events
+
+
+def merge_tile_edges(T, W, tw, rng, extra=200):
+    """Rows at the copy's tile edges in a table of T rows of W words, tiles
+    of tw words: for every tile boundary the row that holds its first word
+    and the one that holds the word before (one row where a row straddles
+    the boundary), the rows on either side of those, row 0 and row T - 1;
+    and `extra` other rows at random."""
+    import numpy as np
+
+    cut = [[k * tw // W - 1, k * tw // W, -(-k * tw // W), (k * tw - 1) // W]
+           for k in range(1, T * W // tw + 1)]
+    rows = np.unique(np.clip(np.concatenate([[0, T - 1], *cut]), 0, T - 1))
+    more = rng.choice(np.setdiff1d(np.arange(T), rows), extra, replace=False)
+    return rng.permutation(np.concatenate([rows, more]))
+
+
+def merge_tile_inputs(tw, seed=5):
+    """Cases at the copy's tile edges, for tiles of `tw` words: the rows of
+    merge_tile_edges in tables one row under, at and over 40 tiles, all
+    updates inside one tile, every row updated, every entry dead (40.5
+    tiles); rows of 4 f32 (a whole number a tile), 5 f32 and 5 f64 (rows
+    that straddle)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cases = {}
+    for cols, dt in ((4, torch.float32), (5, torch.float32), (5, torch.float64)):
+        W = cols * torch.finfo(dt).bits // 32  # words a row
+        two, big = 40 * tw // W, 81 * tw // (2 * W)  # 40 tiles, 40.5
+        tables = {
+            "edges_under": (two - 1, merge_tile_edges(two - 1, W, tw, rng)),
+            "edges_at": (two, merge_tile_edges(two, W, tw, rng)),
+            "edges_over": (two + 1, merge_tile_edges(two + 1, W, tw, rng)),
+            "one_tile": (big, rng.permutation(np.arange(tw // W + 1, 2 * tw // W - 1))[::2]),
+            "every_row": (big, rng.permutation(big)),
+            "every_dead": (big, np.where(rng.random(big) < 0.5, -1,
+                                         big + rng.integers(0, big, big))),
+        }
+        for name, (T, rows) in tables.items():
+            idx = torch.as_tensor(np.asarray(rows, np.int64), device="cuda")
+            cases[f"merge_rows_tile_{name}_{cols}x{str(dt)[6:]}"] = (
+                torch.randn(T, cols, generator=g, device="cuda", dtype=dt), idx,
+                torch.randn(idx.shape[0], cols, generator=g, device="cuda", dtype=dt))
+    return cases
+
+
 def merge_edge_inputs(T, seed=3):
     """Edge cases of the merge at table size T: the first and the last row,
     unique rows in random order mixed with entries below 0 and at or past
@@ -1438,42 +1621,39 @@ def merge_check(name, tab, idx, rec):
 
 def merge_phase(name, tab, idx, rec, floor):
     """The merge kernel on (tab, idx, rec): checked bit-equal to its plain
-    version and to index_copy, timed alone on the device (its copy and
-    scatter launches, CUPTI), per wrapper call, and against the plain
-    version and index_copy (on the valid entries); the bound is the bytes
-    over the memory rate: the table read and written, idx and rec read."""
+    version and to index_copy, timed alone on the device (its one launch,
+    CUPTI), per wrapper call, and against the plain version, index_copy
+    (on the valid entries) and tab.clone() (the copy alone); the bound is
+    merge_bytes over the memory rate."""
     from malio_tpu_torch.ops import merge
 
     iv, rv, n_valid = merge_check(name, tab, idx, rec)
     T, W = tab.shape
     N = idx.shape[0]
     fn = lambda: merge.merge_rows(tab, idx, rec)
-    calls = device_events(fn, 50)
-    per = [sum(us for nm, us in c if "merge_rows" in nm) for c in calls]
-    launched = {sum(1 for nm, _ in c if "merge_rows" in nm) for c in calls}
-    if launched != {2 if N else 1}:
-        raise AssertionError(f"{name}: {launched} merge_rows device events per call")
-    ms = statistics.median(per) / 1e3
+    ms, events = merge_device_ms(fn)
+    if events != [1]:
+        raise AssertionError(f"{name}: {events} merge_rows device events per call, not one")
     c_ms = call_ms(fn)
     p_ms, p_ops = device_ms(lambda: merge.merge_rows_plain(tab, idx, rec))
     p_call = call_ms(lambda: merge.merge_rows_plain(tab, idx, rec), n=10)
     l_ms, _ = device_ms(lambda: tab.index_copy(0, iv, rv))
     l_call = call_ms(lambda: tab.index_copy(0, iv, rv), n=30)
-    nbytes = (2 * tab.numel() * tab.element_size() + idx.numel() * 8
-              + rec.numel() * rec.element_size())
+    clone_ms, _ = device_ms(tab.clone)
+    nbytes = merge_bytes(T, N, n_valid, W * tab.element_size())
     b_ms, b_by = bound(nbytes, 0)
     log(f"kernel {name} T={T} N={N} ({n_valid} valid) {tab.dtype}: bit-equal to plain and to "
-        f"index_copy; device {ms:.5f} ms (copy + scatter), call {c_ms:.4f} ms (plain device "
+        f"index_copy; device {ms:.5f} ms (one launch), call {c_ms:.4f} ms (plain device "
         f"{p_ms:.4f} ms in {p_ops:.0f} device ops, call {p_call:.4f} ms; index_copy device "
-        f"{l_ms:.4f} ms, call {l_call:.4f} ms); bound {b_ms:.5f} ms by {b_by}, "
-        f"{b_ms + floor:.5f} ms with the launch floor")
+        f"{l_ms:.4f} ms, call {l_call:.4f} ms; clone {clone_ms:.5f} ms); bound {b_ms:.5f} ms "
+        f"by {b_by} ({b_ms / ms:.3f} of it), {b_ms + floor:.5f} ms with the launch floor")
     return dict(
         name=name, route="cuda", source="malio_tpu_torch/csrc/merge_rows.cu",
         replaces="benchmarks/micro_r4b.py:92", shape=f"T={T} N={N} W={W} {str(tab.dtype)[6:]}",
         shape_key=(T, N), counter="merge_rows", valid=n_valid, max_abs_err=0.0, ms=ms,
         call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call, plain_device_ops=p_ops, bound_ms=b_ms,
         bound_by=b_by, bound_with_floor_ms=b_ms + floor, bytes=nbytes, library_ms=l_ms,
-        library_call_ms=l_call,
+        library_call_ms=l_call, clone_ms=clone_ms,
     )
 
 
@@ -1506,6 +1686,12 @@ def merge_kernel_phase(path_args, floor):
     rows += [merge_phase(name, *args, floor) for name, args in path_args.items()]
     rows += [merge_phase(name, *args, floor)
              for name, args in merge_edge_inputs(1 << MERGE_LOG_T[-1]).items()]
+    from malio_tpu_torch.ops import merge
+
+    tiles = merge_tile_inputs(merge.tile_words(1))
+    for name, args in tiles.items():
+        merge_check(name, *args)
+    log(f"merge kernel bit-equal to plain and index_copy at {len(tiles)} tile-edge cases")
     return rows
 
 
@@ -2129,6 +2315,8 @@ if __name__ == "__main__":
                     help="only time knn_cached of the package in TREE on --inputs")
     ap.add_argument("--deskew-kernel", metavar="TREE",
                     help="only time the deskew kernel of the package in TREE (--inputs optional)")
+    ap.add_argument("--merge-kernel", metavar="TREE",
+                    help="only time the merge kernel of the package in TREE beside this one's")
     ap.add_argument("--inputs", metavar="FILE", help="inputs saved by --save-stage-inputs")
     ap.add_argument("--outputs", metavar="FILE",
                     help="with --deskew-kernel: keep the first tree's results in FILE, compare "
@@ -2147,6 +2335,8 @@ if __name__ == "__main__":
         sys.exit(knn_stage_main(a.knn_stage, a.inputs))
     if a.deskew_kernel:
         sys.exit(deskew_kernel_main(a.deskew_kernel, a.inputs, a.outputs))
+    if a.merge_kernel:
+        sys.exit(merge_kernel_main(a.merge_kernel))
     if a.trace_check:
         sys.exit(trace_check_main(a.trace_check, a.lead_in))
     sys.exit(main(a.save_stage_inputs))

@@ -9,6 +9,14 @@ replacement for the map insert's scatter, malio_tpu/map/voxel_hash.py:
 write is a copy, so kernel and plain version give the same bits. CPU
 tensors run the plain version; CUDA tensors launch the kernel; there is
 no other fallback.
+
+The kernel is one launch: a persistent grid copies the table tile by
+tile and writes each update once the tiles its row lies in are copied,
+which per-tile flags in a scratch tensor tell (one per device, zeroed at
+the first call and kept: the kernel advances its own stamp, so a launch
+captured in a CUDA graph replays as it runs). Calls on one device share
+that scratch and must run in stream order; a capture before the first
+eager call on the device raises.
 """
 from __future__ import annotations
 
@@ -29,17 +37,32 @@ def merge_rows_plain(tab, idx, rec):
     return flat[:T]
 
 
-_fn = None
+# tile flags in the scratch: tables up to 2^16 tiles of 32 KB (2 GiB) take
+# one flag a tile, larger ones tiles of a power-of-two multiple of 32 KB
+FLAGS = 1 << 16
+_HEADER = 4  # the last call's stamp, the tile ticket, blocks copied, one unused
+_scratch = {}  # device -> int64 (_HEADER + FLAGS,)
+_loaded = None
 
 
 def _lib():
-    global _fn
-    if _fn is None:
-        fn = _build.load("merge_rows").merge_rows_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
-        _fn = fn
-    return _fn
+    global _loaded
+    if _loaded is None:
+        lib = _build.load("merge_rows")
+        lib.merge_rows_launch.restype = ctypes.c_int
+        lib.merge_rows_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
+        lib.merge_rows_tile_words.restype = ctypes.c_int64
+        lib.merge_rows_tile_words.argtypes = [ctypes.c_int64] * 2
+        _loaded = lib
+    return _loaded
+
+
+def tile_words(words):
+    """Words in a tile of the kernel's copy for a table of `words` 4-byte
+    words (the card's build; for tests at tile boundaries)."""
+    return int(_lib().merge_rows_tile_words(words, FLAGS))
 
 
 def merge_rows(tab, idx, rec):
@@ -66,9 +89,17 @@ def merge_rows(tab, idx, rec):
     row_bytes = W * tab.element_size()
     if row_bytes % 4:
         raise ValueError(f"merge_rows: a row of {row_bytes} bytes is not a whole number of words")
+    launch = _lib().merge_rows_launch
+    state = _scratch.get(dev)
+    if state is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("merge_rows: call it once on this device before capturing it "
+                               "in a CUDA graph (the first call makes its scratch)")
+        state = _scratch[dev] = torch.zeros(_HEADER + FLAGS, dtype=torch.int64, device=dev)
     out = torch.empty_like(tab)
-    err = _lib()(tab.data_ptr(), out.data_ptr(), idx.data_ptr(), rec.data_ptr(), T, N,
-                 row_bytes // 4, torch.cuda.current_stream(dev).cuda_stream)
+    err = launch(tab.data_ptr(), out.data_ptr(), idx.data_ptr(), rec.data_ptr(), T, N,
+                 row_bytes // 4, state.data_ptr(), FLAGS,
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "merge_rows_launch")
     _counted.launches += 1
     by_shape = _counted.launches_by_shape

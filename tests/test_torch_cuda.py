@@ -21,14 +21,21 @@ are the same bits on every call. The merge kernel (the insert's table
 write) equals its plain version and index_copy bit for bit: the first
 and the last row, unsorted rows mixed with entries outside the table,
 nothing valid, no update, f32 and f64 rows, tables whose size leaves a
-tail past the 16-byte copy, a 2^21-row table; the insert through it equals
-the insert through the plain version; its refusals.
+tail past the 16-byte copy, a 2^21-row table; at the edges of its copy's
+tiles (updates on a tile's first and last row, rows that straddle two
+tiles, tables one row under and over a tile multiple, all updates in one
+tile, every row updated, every entry dead); 1,000 back-to-back calls of
+two shapes; replays of a CUDA graph that captured it; the insert through
+it equals the insert through the plain version; its refusals.
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +45,9 @@ from malio_tpu_torch import spline as spl
 from malio_tpu_torch.geometry import se3, so3
 from malio_tpu_torch.map import voxel_hash as vh
 from malio_tpu_torch.ops import deskew, knn, merge
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the merge's tile-edge rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -433,6 +443,102 @@ def test_merge_rows_kernel_bit_equal_to_plain(card, T, dtype):
         assert torch.equal(got, want), name
         assert torch.equal(got, lib), name
         assert merge.merge_rows.launches_by_shape[T, len(rows)] == before + 1
+
+
+def _tile_case(kind, W, tw, rng):
+    """(T, rows) of a tile-edge case for rows of W words and tiles of tw
+    words: `edges_*` update the first and the last row of every tile and
+    their neighbours (with W = 5 or 10 a row straddles two tiles) in a table
+    one row under, at or over 40 tiles; `one_tile` updates rows wholly
+    inside tile 1; the others a table of 40.5 tiles."""
+    two, big = 40 * tw // W, 81 * tw // (2 * W)
+    T = {"edges_under": two - 1, "edges_at": two, "edges_over": two + 1}.get(kind, big)
+    if kind.startswith("edges"):
+        return T, chip_smoke.merge_tile_edges(T, W, tw, rng)
+    if kind == "one_tile":
+        return T, rng.permutation(np.arange(tw // W + 1, 2 * tw // W - 1))[::2]
+    if kind == "every_row":
+        return T, rng.permutation(T)
+    return T, np.where(rng.random(T) < 0.5, -1, T + rng.integers(0, T, T))  # every_dead
+
+
+@pytest.mark.parametrize("kind", ["edges_under", "edges_at", "edges_over", "one_tile",
+                                  "every_row", "every_dead"])
+@pytest.mark.parametrize("W, dtype", [(4, torch.float32), (5, torch.float32),
+                                      (5, torch.float64)])
+def test_merge_rows_kernel_at_tile_edges(card, kind, W, dtype):
+    words = W * torch.finfo(dtype).bits // 32  # 4-byte words a row
+    tw = merge.tile_words(1)
+    rng = np.random.default_rng(W + len(kind))
+    T, rows = _tile_case(kind, words, tw, rng)
+    g = np.random.default_rng(T)
+    tab = torch.as_tensor(g.normal(size=(T, W)), dtype=dtype, device=card)
+    idx = torch.as_tensor(np.asarray(rows, np.int64), device=card)
+    rec = torch.as_tensor(g.normal(size=(len(rows), W)), dtype=dtype, device=card)
+    got = merge.merge_rows(tab, idx, rec)
+    ok = (idx >= 0) & (idx < T)
+    lib = tab.index_copy(0, idx[ok], rec[ok])
+    torch.cuda.synchronize()
+    assert torch.equal(got, merge.merge_rows_plain(tab, idx, rec))
+    assert torch.equal(got, lib)
+
+
+def test_merge_rows_back_to_back_calls(card):
+    """1,000 calls in turns at two shapes (43 and 4 tiles, f32 and f64),
+    100 at a time with no other launch between them, each with new records:
+    every result bit-equal to the plain version (stale flags or tickets
+    from the call before would write an update before its copy)."""
+    rng = np.random.default_rng(7)
+    shapes = []
+    for T, N, dtype in ((70_001, 4096, torch.float32), (3000, 1000, torch.float64)):
+        rows = np.concatenate([rng.choice(T, N - 96, replace=False), np.full(96, -1)])
+        rng.shuffle(rows)
+        shapes.append((torch.as_tensor(rng.normal(size=(T, 5)), dtype=dtype, device=card),
+                       torch.as_tensor(rows, device=card),
+                       torch.as_tensor(rng.normal(size=(N, 5)), dtype=dtype, device=card)))
+    for group in range(10):
+        recs = [shapes[i % 2][2] + (100 * group + i) for i in range(100)]
+        outs = [merge.merge_rows(shapes[i % 2][0], shapes[i % 2][1], recs[i])
+                for i in range(100)]
+        for i, out in enumerate(outs):
+            tab, idx, _ = shapes[i % 2]
+            assert torch.equal(out, merge.merge_rows_plain(tab, idx, recs[i])), (group, i)
+
+
+def test_merge_rows_replays_in_a_cuda_graph(card):
+    """merge_rows captured on static buffers, replayed three times with
+    new tables, targets and records copied in (an eager call between
+    replays): each replay bit-equal to merge_rows_plain on its inputs."""
+    T, N = 50_000, 3000
+    rng = np.random.default_rng(11)
+
+    def inputs():
+        rows = np.concatenate([rng.choice(T, N - 200, replace=False), np.full(100, -1),
+                               T + np.arange(100)])
+        rng.shuffle(rows)
+        return (torch.as_tensor(rng.normal(size=(T, 5)), dtype=torch.float32, device=card),
+                torch.as_tensor(rows, device=card),
+                torch.as_tensor(rng.normal(size=(N, 5)), dtype=torch.float32, device=card))
+
+    tab, idx, rec = inputs()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as CUDA graphs ask
+        for _ in range(3):
+            merge.merge_rows(tab, idx, rec)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = merge.merge_rows(tab, idx, rec)
+    for r in range(3):
+        for dst, src in zip((tab, idx, rec), inputs()):
+            dst.copy_(src)
+        graph.replay()
+        want = merge.merge_rows_plain(tab, idx, rec)
+        eager = merge.merge_rows(tab, idx, rec)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), r
+        assert torch.equal(eager, want), r
 
 
 def test_insert_through_merge_kernel_equals_plain(card, monkeypatch):

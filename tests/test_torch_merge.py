@@ -6,7 +6,11 @@ it tile by tile), exactly, at T = 2^12 rows and N = 300 updates, for
 sorted, unsorted and out-of-range entries in f32 and f64. The insert
 through it equals the insert through the former write (a dump row for the
 lanes that write nothing) and the JAX insert, bit for bit, on a map whose
-rows fill (drops) and then take new voxels (evictions)."""
+rows fill (drops) and then take new voxels (evictions). The byte count
+that `chip_smoke.py` bounds the merge kernel by, at the paths' shapes."""
+import pathlib
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,9 @@ from malio_tpu.map import voxel_hash as jvh
 
 from malio_tpu_torch.map import voxel_hash as tvh
 from malio_tpu_torch.ops import merge
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (imports neither jax nor malio_tpu)
 
 torch.set_num_threads(1)
 T, N = 1 << 12, 300
@@ -110,3 +117,14 @@ def test_insert_before_and_after_the_merge(dtype, monkeypatch):
         np.testing.assert_array_equal(after.tab.numpy(), np.asarray(m.tab))
         assert int(after.n_evicted) == int(np.asarray(m.n_evicted))
         assert int(after.n_dropped) == int(np.asarray(m.n_dropped))
+
+
+@pytest.mark.parametrize("T_, N_, want", [
+    (1 << 21, 1 << 21, 100_663_296),  # a correction's re-insert of the map
+    (1 << 21, 9984, 83_965_952),  # the main path's insert
+])
+def test_merge_bytes_at_the_paths_shapes(T_, N_, want):
+    """The table read once (its overwritten rows as records instead), the
+    table written once, idx read once: whatever the valid count."""
+    for n_valid in (0, 551, 38_600, min(N_, T_)):
+        assert chip_smoke.merge_bytes(T_, N_, n_valid, 5 * 4) == want
