@@ -51,9 +51,14 @@ of its copy's tiles; the plain rounds run once more with only the merge
 plain, bit-equal to the main path. The dataset cell writes the flagship
 sequence as a City file-player tree (io/export) and runs it through `python -m
 malio_tpu_torch.run_dataset` (TUM, ATE / RPE, PCD map read back equal)
-and DatasetPlayer (equal to the arrival-ordered feed within 1e-5 m); last
-bench_torch.py's kernel times. Any failure exits non-zero; the last line
-is the device summary.
+and DatasetPlayer (equal to the arrival-ordered feed within 1e-5 m);
+bench_torch.py's kernel times; last the distributed cell: 24 flagship
+rounds through distributed.sharding's worker in two processes sharing
+the card over gloo, dp = 2 x mp = 1 (seeds 0 and 1, each bit-equal to
+its own run) and dp = 1 x mp = 2 (within 1e-3 m of the main path, map
+sizes equal), every rank's launches, collectives and round times, and
+the three kernels at an mp rank's shapes. Any failure exits non-zero;
+the last line is the device summary.
 
     python3 chip_smoke.py                               # the smoke run
     python3 chip_smoke.py --save-stage-inputs FILE      # ... keeping the map, the
@@ -120,7 +125,7 @@ SOLVER_K = 2048  # one optimize_sparse at the default capacity
 BATCH = 16
 BATCH_SECONDS = 6.0
 BATCH_B1_SECONDS = 8.0
-BATCH_PASSES = 3
+BATCH_PASSES = 2  # a third pass takes the whole run past 700 s (PERF.md §4)
 BATCH_CHUNK = 8
 BATCH_CHECK = (0, 7, 15)  # sequences of the B = 16 run held against their own runs,
 BATCH_CHECK_ROUNDS = 24  # over their first 24 rounds (all 48 would take ~1 min more)
@@ -155,6 +160,14 @@ DATASET_SECONDS = 8.0
 DATASET_SENSORS = ["ouster", "livox_avia", "livox_tele"]
 PLAYER_TOL_M = 1e-5  # player against the arrival-ordered feed (tests/test_player.py:119)
 BITS_ROUNDS = 3  # rounds of the --batch-bits search
+# the distributed cell: the flagship config in two processes on one card over
+# gloo, DIST_ROUNDS rounds through distributed.sharding's worker; dp = 2 x mp =
+# 1 (seeds 0 and 1, each rank bit-equal to its sequence's own run) and dp = 1
+# x mp = 2 (seed 0 against the main path within BATCH_TOL_M, map sizes equal)
+DIST_ROUNDS = 24
+DIST_SEED1_SECONDS = 4.0  # seed 1's sequence: its IMU initialisation and DIST_ROUNDS rounds
+DIST_MP = 2
+DIST_DEADLINE_S = 300  # a world past it fails the phase; a collective waits as long
 
 
 def log(*a):
@@ -371,9 +384,7 @@ def knn_phase(m, queries, qmask, cfg, K, suffix=""):
     the path's tier (256) and at the full budget. A batch of maps (B, R,
     32, 5) and queries (B, Q, 3) goes to the kernel as the batched path
     sends it: one flat (B R) table, rows offset by b R, B Q queries."""
-    import torch
     from malio_tpu_torch.map import voxel_hash as vh
-    from malio_tpu_torch.ops import knn
 
     live = _live(queries, qmask)
     shapes = [
@@ -381,60 +392,71 @@ def knn_phase(m, queries, qmask, cfg, K, suffix=""):
         ("knn_window_wide", live[..., :256, :], cfg.knn_wide_radius, None),
         ("knn_window_wide_budget", live[..., : cfg.knn_wide_budget, :], cfg.knn_wide_radius, None),
     ]
-    big = torch.finfo(torch.float32).max
     rows_out = []
     for name, q, radius, mask in shapes:
-        name += suffix
         q = q.contiguous()
         b, alive = vh._window_rows(m, q, radius, mask)
         tab, b = vh._batch_rows(m, b)
         V = b.shape[-1]
-        b, alive, q = b.reshape(-1, V), alive.reshape(-1, V), q.reshape(-1, 3)
-        args = (tab, q, b, alive)
-        Q = b.shape[0]
-        err, stats = check_window(name, args, K)
-        err_e, stats_e = check_window(name + " (edge cases)", edge_windows(*args), K)
-        for key in ("exhausted_slots", "empty_windows", "ties"):
-            if stats_e[key] == 0:
-                raise AssertionError(f"{name}: the edge inputs exercised no {key}")
-        ms = kernel_ms(lambda: knn.knn_window(*args, K), "knn_window_")
-        c_ms = call_ms(lambda: knn.knn_window(*args, K))
-        p_ms, p_ops = device_ms(lambda: knn.knn_window_plain(*args, K))
-        p_call = call_ms(lambda: knn.knn_window_plain(*args, K), n=10)
-
-        # library yardstick: torch.topk + gather on the precomputed masked d2
-        win = tab[b]
-        occ = ((win[..., 0] != 0) & alive[..., None]).reshape(Q, V * 32)
-        cpts = win[..., 1:4].reshape(Q, V * 32, 3).contiguous()
-        ccov = torch.where(occ, win[..., 4].reshape(Q, V * 32), 0.0)
-        d2 = torch.where(occ, vh._sqdist(cpts, q[:, None, :]), big)
-        del win
-
-        def library():
-            v, i = torch.topk(d2, K, dim=-1, largest=False, sorted=True)
-            return torch.gather(cpts, 1, i[..., None].expand(Q, K, 3)), torch.gather(ccov, 1, i), v
-
-        l_ms, _ = device_ms(library)
-        l_call = call_ms(library, n=30)
-        del d2, cpts, ccov
-        touched = int(torch.unique(torch.cat([b[alive], b[:, 0]])).numel())
-        n_lanes = int((tab[..., 0] != 0).sum(1)[b][alive].sum())
-        nbytes = touched * ROW_BYTES + Q * 12 + Q * V * 9 + Q * K * 20
-        b_ms, b_by = bound(nbytes, n_lanes * KNN_OPS_PER_LANE)
-        rows_out.append(dict(
-            name=name, route="cuda", source="malio_tpu_torch/csrc/knn_window.cu",
-            replaces="malio_tpu/ops/knn_pallas.py:88", shape=f"Q={Q} V={V} K={K}", Q=Q, V=V, K=K,
-            max_abs_err=max(err, err_e), ms=ms, call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call,
-            plain_device_ops=p_ops, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-            touched_rows=touched, live_lanes=n_lanes, library_ms=l_ms, library_call_ms=l_call,
-            cases=stats, edge_cases=stats_e,
-        ))
-        log(f"kernel {name} Q={Q} V={V} K={K}: bit-equal to plain (path inputs {stats}, "
-            f"edge inputs {stats_e}); device {ms:.4f} ms, call {c_ms:.4f} ms (plain device "
-            f"{p_ms:.4f} ms in {p_ops:.0f} device ops, call {p_call:.4f} ms; torch.topk+gather "
-            f"device {l_ms:.4f} ms, call {l_call:.4f} ms); bound {b_ms:.5f} ms by {b_by} "
-            f"({touched} distinct rows, {nbytes} B)")
+        rows_out.append(knn_row(name + suffix, (tab, q.reshape(-1, 3), b.reshape(-1, V),
+                                                alive.reshape(-1, V)), K))
     return rows_out
+
+
+def knn_row(name, args, K):
+    """The fused k-NN window kernel on args (tab, queries, rows, alive):
+    bit-equal to its plain version on them and with edge cases planted,
+    timed alone on the device, per wrapper call, against the plain version
+    and torch.topk + gather; the bound from these inputs."""
+    import torch
+    from malio_tpu_torch.map import voxel_hash as vh
+    from malio_tpu_torch.ops import knn
+
+    tab, q, b, alive = args
+    Q, V = b.shape
+    big = torch.finfo(torch.float32).max
+    err, stats = check_window(name, args, K)
+    err_e, stats_e = check_window(name + " (edge cases)", edge_windows(*args), K)
+    for key in ("exhausted_slots", "empty_windows", "ties"):
+        if stats_e[key] == 0:
+            raise AssertionError(f"{name}: the edge inputs exercised no {key}")
+    ms = kernel_ms(lambda: knn.knn_window(*args, K), "knn_window_")
+    c_ms = call_ms(lambda: knn.knn_window(*args, K))
+    p_ms, p_ops = device_ms(lambda: knn.knn_window_plain(*args, K))
+    p_call = call_ms(lambda: knn.knn_window_plain(*args, K), n=10)
+
+    # library yardstick: torch.topk + gather on the precomputed masked d2
+    win = tab[b]
+    occ = ((win[..., 0] != 0) & alive[..., None]).reshape(Q, V * 32)
+    cpts = win[..., 1:4].reshape(Q, V * 32, 3).contiguous()
+    ccov = torch.where(occ, win[..., 4].reshape(Q, V * 32), 0.0)
+    d2 = torch.where(occ, vh._sqdist(cpts, q[:, None, :]), big)
+    del win
+
+    def library():
+        v, i = torch.topk(d2, K, dim=-1, largest=False, sorted=True)
+        return torch.gather(cpts, 1, i[..., None].expand(Q, K, 3)), torch.gather(ccov, 1, i), v
+
+    l_ms, _ = device_ms(library)
+    l_call = call_ms(library, n=30)
+    del d2, cpts, ccov
+    touched = int(torch.unique(torch.cat([b[alive], b[:, 0]])).numel())
+    n_lanes = int((tab[..., 0] != 0).sum(1)[b][alive].sum())
+    nbytes = touched * ROW_BYTES + Q * 12 + Q * V * 9 + Q * K * 20
+    b_ms, b_by = bound(nbytes, n_lanes * KNN_OPS_PER_LANE)
+    log(f"kernel {name} Q={Q} V={V} K={K}: bit-equal to plain (path inputs {stats}, "
+        f"edge inputs {stats_e}); device {ms:.4f} ms, call {c_ms:.4f} ms (plain device "
+        f"{p_ms:.4f} ms in {p_ops:.0f} device ops, call {p_call:.4f} ms; torch.topk+gather "
+        f"device {l_ms:.4f} ms, call {l_call:.4f} ms); bound {b_ms:.5f} ms by {b_by} "
+        f"({touched} distinct rows, {nbytes} B)")
+    return dict(
+        name=name, route="cuda", source="malio_tpu_torch/csrc/knn_window.cu",
+        replaces="malio_tpu/ops/knn_pallas.py:88", shape=f"Q={Q} V={V} K={K}", Q=Q, V=V, K=K,
+        max_abs_err=max(err, err_e), ms=ms, call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call,
+        plain_device_ops=p_ops, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+        touched_rows=touched, live_lanes=n_lanes, library_ms=l_ms, library_call_ms=l_call,
+        cases=stats, edge_cases=stats_e,
+    )
 
 
 def deskew_inputs(L, N, C, seed):
@@ -954,24 +976,19 @@ def flagship_groups(cfg, duration, seed, traj_kwargs=None):
     return assemble_groups(cfg, imu, rounds), traj
 
 
-def _wrappers():
-    from malio_tpu_torch.ops import deskew, knn, merge
-
-    return dict(knn_window=knn.knn_window, deskew=deskew.deskew_points,
-                merge_rows=merge.merge_rows)
-
-
 def reset_launches():
     """Every kernel wrapper's launch count to 0."""
-    for fn in _wrappers().values():
-        fn.launches = 0
-        fn.launches_by_shape = {}
+    from malio_tpu_torch import ops
+
+    ops.reset_launches()
 
 
 def read_launches(path, kernels=("knn_window", "deskew", "merge_rows")):
     """The launches of the run just driven, by kernel and shape; fails if
     a kernel of the path was launched no time."""
-    counts = {name: dict(fn.launches_by_shape) for name, fn in _wrappers().items()}
+    from malio_tpu_torch import ops
+
+    counts = {name: dict(fn.launches_by_shape) for name, fn in ops.wrappers().items()}
     for name in kernels:
         if not counts[name]:
             raise AssertionError(f"{path} path: kernel {name} was launched no time ({counts})")
@@ -1843,6 +1860,186 @@ def dataset_phase(out_dir, smi, dev="cuda"):
     return out, paths
 
 
+def dist_world(cfg, inputs, out, dp, mp, B, dev="cuda"):
+    """distributed.sharding's worker in dp x mp processes on the card over
+    gloo (ranks share the card) through sharding.run_local, over B
+    sequences: a process that fails or a world past DIST_DEADLINE_S fails
+    the phase, and its peers are killed. Returns (outputs, carry) of
+    process 0 (gathered; the carry as numpy arrays) and every rank's stats
+    (launches, collectives per round, round ms, shard rows)."""
+    import torch
+    from malio_tpu_torch import interop
+    from malio_tpu_torch.distributed import sharding
+
+    stats = sharding.run_local(inputs, out, dp * mp, mp, device=dev, deadline_s=DIST_DEADLINE_S)
+    outs, carry = sharding.load_outputs(out, sharding.carry_template(cfg, B, torch.float32))
+    return (outs, interop.carry_to_numpy(carry)), stats
+
+
+def dist_inputs(cfg, path, seqs, dev="cuda"):
+    """The worker's inputs for sequences `seqs` (their measure groups):
+    each IMU-initialised on the card as the replay seeds it
+    (batched._init_seq) and its first DIST_ROUNDS rounds stacked as
+    run_sequence rebases them; the carries stacked on the batch axis."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import batched, runner, tree
+    from malio_tpu_torch.distributed import sharding
+
+    carries, arrays = [], []
+    for groups in seqs:
+        c, stream, b0 = batched._init_seq(cfg, groups, torch.float32, dev)
+        if len(stream) < DIST_ROUNDS:
+            raise AssertionError(f"distributed: {len(stream)} rounds, want {DIST_ROUNDS}")
+        carries.append(c)
+        arrays.append(runner._chunk_arrays(stream[:DIST_ROUNDS], np.float32, b0)[0])
+    groups = {k: np.stack([a[k] for a in arrays], axis=1) for k in arrays[0]}
+    sharding.save_inputs(path, cfg, tree.stack(carries), groups)
+
+
+def _dist_launches(stats):
+    """The ranks' launches summed, keyed as read_launches keys them."""
+    total = {}
+    for s in stats:
+        for name, by_shape in s["launches"].items():
+            d = total.setdefault(name, {})
+            for key, n in by_shape.items():
+                k = tuple(int(v) for v in key.split(","))
+                d[k] = d.get(k, 0) + n
+    return total
+
+
+def check_dist_launches(label, stats):
+    """Fails unless every rank launched each kernel of the path."""
+    for s in stats:
+        for name in ("knn_window", "deskew", "merge_rows"):
+            if not s["launches"][name]:
+                raise AssertionError(f"{label} rank {s['rank']}: kernel {name} was launched no "
+                                     f"time ({s['launches']})")
+
+
+def _rank_report(stats, main_round_ms):
+    out = []
+    for s in stats:
+        out.append(dict(
+            rank=s["rank"], dp_index=s["dp_index"], mp_index=s["mp_index"], device=s["device"],
+            launches={k: sum(v.values()) for k, v in s["launches"].items()},
+            launches_by_shape=s["launches"], collectives_per_round=s["collectives_per_round"],
+            round_ms=s["round_ms"], round_ms_median=statistics.median(s["round_ms"][1:]),
+            main_round_ms_median=main_round_ms, shard_rows=s["shard_rows"], rows=s["rows"]))
+    return out
+
+
+def distributed_phase(cfg, groups, res, round_s, out_dir, smi, dev="cuda"):
+    """The distributed cell: DIST_ROUNDS flagship rounds in two processes
+    on this card over gloo, through the sharding worker (make_mesh,
+    carry_sharding, run_batched, gather_carry / gather_outputs).
+
+    dp = 2 x mp = 1, seeds 0 and 1: each rank's sequence bit-equal to its
+    own single-process run (seed 0's is the main path). dp = 1 x mp = 2,
+    seed 0: within BATCH_TOL_M of the main path with equal map sizes every
+    round (every exchange is exact, but a rank's per-lane products run on
+    half the lanes, which cuBLAS may serve with another kernel), and how
+    many rounds are bit-equal. Every rank must launch all three kernels;
+    per rank its launches, collectives a round, round wall time (host
+    clock, synchronised) and its map rows. Returns (report, launches by
+    path)."""
+    import torch
+    from malio_tpu_torch import runner
+
+    groups1, _ = flagship_groups(cfg, DIST_SEED1_SECONDS, seed=1)
+    res1 = runner.run_sequence(cfg, groups1, dtype=torch.float32, device=dev)
+    main_ms = statistics.median(round_s[1:DIST_ROUNDS]) * 1e3
+    d = out_dir / "distributed"
+    d.mkdir(exist_ok=True)
+    try:
+        return _distributed_worlds(cfg, groups, groups1, res, res1, main_ms, d, smi, dev)
+    finally:  # the worlds' npz files hold whole maps: keep only the stats and logs
+        for f in d.glob("*.npz"):
+            f.unlink()
+
+
+def _distributed_worlds(cfg, groups, groups1, res, res1, main_ms, d, smi, dev):
+    import numpy as np
+    import torch
+
+    K = DIST_ROUNDS
+    dist_inputs(cfg, d / "dp.npz", [groups, groups1], dev)
+    dist_inputs(cfg, d / "mp.npz", [groups], dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    report, paths = {}, {}
+
+    t0 = time.perf_counter()
+    (outs, _), stats = dist_world(cfg, d / "dp.npz", d / "dp_out.npz", dp=2, mp=1, B=2, dev=dev)
+    wall = time.perf_counter() - t0
+    check_dist_launches("dist_dp", stats)
+    for b, ref in enumerate((res, res1)):
+        for f in ("pos", "quat", "map_size"):
+            _same(f"dist_dp sequence {b} {f}", outs[f][:, b], ref[f][:K])
+    paths["dist_dp"] = _dist_launches(stats)
+    report["dp2_mp1"] = dict(wall_s=wall, bit_equal_sequences=2, ranks=_rank_report(stats, main_ms))
+
+    t0 = time.perf_counter()
+    (outs, carry), stats = dist_world(cfg, d / "mp.npz", d / "mp_out.npz", dp=1, mp=DIST_MP, B=1, dev=dev)
+    wall = time.perf_counter() - t0
+    check_dist_launches("dist_mp", stats)
+    pos, want = outs["pos"][:, 0], res["pos"][:K]
+    if not np.all(np.isfinite(pos)) or pos.shape != want.shape:
+        raise AssertionError(f"dist_mp: positions not finite or of shape {pos.shape}")
+    dpos = np.abs(pos.astype(np.float64) - want).max(1)
+    bits = [bool(np.array_equal(pos[k], want[k]) and np.array_equal(outs["quat"][k, 0],
+                                                                 res["quat"][k])) for k in range(K)]
+    sizes, want_sizes = outs["map_size"][:, 0], res["map_size"][:K]
+    if not (dpos.max() <= BATCH_TOL_M and np.array_equal(sizes, want_sizes)):
+        raise AssertionError(f"dist_mp against the main path: |dpos| by round {dpos.tolist()} m "
+                             f"(limit {BATCH_TOL_M}), map sizes {sizes.tolist()} / "
+                             f"{want_sizes.tolist()}, bit-equal rounds {bits}")
+    rows = [s["shard_rows"] for s in stats]
+    if max(rows) > -(-stats[0]["rows"] // DIST_MP) or tuple(carry["map"]["tab"].shape[:2]) != (
+            1, stats[0]["rows"]):
+        raise AssertionError(f"dist_mp: shard rows {rows} of {stats[0]['rows']}")
+    paths["dist_mp"] = _dist_launches(stats)
+    report["dp1_mp2"] = dict(wall_s=wall, max_dpos_m=float(dpos.max()), dpos_m=dpos.tolist(),
+                             bit_equal_rounds=int(sum(bits)), rounds=K,
+                             ranks=_rank_report(stats, main_ms))
+    for label, r in report.items():
+        for k in r["ranks"]:
+            log(f"distributed {label} rank {k['rank']} (dp {k['dp_index']}, mp {k['mp_index']}): "
+                f"launches {k['launches']}, collectives a round {k['collectives_per_round']}, "
+                f"round {k['round_ms_median']:.1f} ms median (main path {main_ms:.1f} ms), map "
+                f"rows {k['shard_rows']}/{k['rows']}")
+    mp = report["dp1_mp2"]
+    log(f"distributed: dp=2 x mp=1, {K} rounds of seeds 0 and 1 bit-equal to their own runs "
+        f"({report['dp2_mp1']['wall_s']:.1f} s); dp=1 x mp={DIST_MP}, seed 0: max |dpos| "
+        f"{mp['max_dpos_m']:.3g} m against the main path (limit {BATCH_TOL_M}), map sizes equal, "
+        f"{mp['bit_equal_rounds']} of {K} rounds bit-equal ({mp['wall_s']:.1f} s); {smi}")
+    return report, paths
+
+
+def dist_mp_kernel_inputs(m, queries, qmask, cfg, deskew_args, merge_args):
+    """Each kernel's arguments as mp rank 0 of the distributed path (mp =
+    DIST_MP) gets them from the main path's last round: the base window
+    over its share of the lanes against the compact table of every rank's
+    window rows (voxel_hash._window_table: their union in row order), the
+    deskew over its slice of the raw points, and the insert's write into
+    its rows of the table (targets past them are skipped)."""
+    import torch
+    from malio_tpu_torch.map import voxel_hash as vh
+
+    b, alive = vh._window_rows(m, queries, cfg.knn_radius, qmask)
+    ids = torch.unique(b)
+    remap = torch.full((m.tab.shape[0],), -1, dtype=torch.int64, device=b.device)
+    remap[ids] = torch.arange(ids.numel(), device=b.device)
+    n = queries.shape[0] // DIST_MP
+    knn_args = (m.tab[ids].contiguous(), queries[:n].contiguous(), remap[b[:n]].contiguous(),
+                alive[:n].contiguous())
+    pts, *rest = deskew_args
+    desk = (pts[:, : pts.shape[1] // DIST_MP].contiguous(), *rest)
+    tab, idx, rec = merge_args
+    return knn_args, desk, (tab[: tab.shape[0] // DIST_MP].contiguous(), idx, rec)
+
+
 def bench_kernels_phase(smi):
     """bench_torch.py's insert_ms, nn_ms and iekf_ms through
     metrics.kernel_timer at its flagship shape."""
@@ -2198,6 +2395,12 @@ def main(save_stage_inputs=None):
     # the kernel at its shapes
     report["knn_k5"], paths["knn_k5"] = knn_function_check(m, queries, qmask, cfg)
     knn_rows += knn_phase(m, queries, qmask, cfg, vh.NUM_MATCH_POINTS, suffix="_k5")
+    # the three kernels at the shapes mp rank 0 of the distributed path gives them
+    mp_knn, mp_desk, mp_merge = dist_mp_kernel_inputs(m, queries, qmask, cfg,
+                                                      last_deskew["args"], main_merge.args)
+    dist_rows = [knn_row("knn_window_dist_mp", mp_knn, K),
+                 deskew_phase("deskew_dist_mp", mp_desk, floor)]
+    del mp_knn, mp_desk
     L = cfg.num_lidars
     desk_rows = [
         deskew_phase("deskew", deskew_inputs(L, cfg.max_raw_points, cfg.spline_capacity, seed=1),
@@ -2218,7 +2421,10 @@ def main(save_stage_inputs=None):
         vh.transform(m, dq, torch.tensor([0.3, -0.2, 0.05], device="cuda"))
     merge_kernel_rows = merge_kernel_phase({"merge_rows_path": main_merge.args,
                                      "merge_rows_transform": corr.args}, floor)
-    del main_merge.args, corr.args
+    dist_rows.append(merge_phase("merge_rows_dist_mp", *mp_merge, floor))
+    for r in dist_rows:
+        r["path"] = "dist_mp"
+    del main_merge.args, corr.args, mp_merge
 
     # ---- the whole k-NN stage, kernel and plain ----
     stage = {flag: stage_ms(vh, meas, m, queries, qmask, cfg, flag) for flag in (True, False)}
@@ -2273,8 +2479,12 @@ def main(save_stage_inputs=None):
     done("dataset")
     report["bench_kernels"], paths["bench_kernels"] = bench_kernels_phase(smi)
     done("bench kernel times")
+    report["distributed"], dist_paths = distributed_phase(cfg, groups, res, np.diff(stamps), out_dir,
+                                                          smi)
+    paths.update(dist_paths)
+    done("distributed")
 
-    kernels = knn_rows + desk_rows + merge_kernel_rows + batch_rows
+    kernels = knn_rows + desk_rows + merge_kernel_rows + batch_rows + dist_rows
     for r in kernels:
         r["floor_ms"] = floor
         if "K" in r:

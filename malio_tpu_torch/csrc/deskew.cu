@@ -27,8 +27,11 @@
 // - Three lanes per point (LANES = 3) while the points are few: lane s
 //   of a point computes exp(b_s d_{j-1+s}) in parallel; lane 0 receives
 //   A1 and A2 by __shfl_sync and composes P_{j-1} A0 A1 A2 left to right
-//   in the order of the one-lane layout, so each point's arithmetic is
-//   the same in both. A warp holds 10 points in lanes 0-29; lanes 30-31
+//   in the order of the one-lane layout. The two layouts still give some
+//   points other last bits, so a slice of a larger point set (a rank's
+//   share) is launched in the whole set's layout
+//   (ops/deskew.deskew_points, `layout_points`; the card tests check it).
+//   A warp holds 10 points in lanes 0-29; lanes 30-31
 //   hold none. Every lane of the warp reaches the shuffles (full mask):
 //   lanes of a point outside the window, of the ragged end and lanes
 //   30-31 compute nothing and send values no lane reads. A warp may hold

@@ -149,12 +149,15 @@ def update_iterated(
     r_floor_value: float = 1e-3,
     search_on_converge: bool = True,
     Pi0=None,
+    shard=None,
 ) -> IEKFResult:
     """Iterated update of B sequences; h_share_fn(x, search, cache) ->
     (HShareResult, cache), with `search` False (no sequence re-searches)
     or a (B,) bool tensor (see measurement.make_h_share). Pi0 warm-starts
     the information-matrix inverse (Newton-Schulz, entry gate 0.95 per
-    sequence, verified to 1e-7, else the direct inverse)."""
+    sequence, verified to 1e-7, else the direct inverse). With `shard` (an
+    mp group; h_share_fn returns every rank's rows) the host reads take
+    every rank's value (`agree`), so all ranks run the same iterations."""
     L = x0.num_lidars
     n = st.dof(L)
     act = 6 * (L + 1)
@@ -204,7 +207,10 @@ def update_iterated(
             X = 0.5 * (X + X.transpose(-1, -2))
         X_w = torch.where((_sbound(E0) < 0.95)[:, None, None], X, Pi_prev)
         verified = _sbound(I_n - mm(P_temp, X_w)) < 1e-7
-        if not bool(verified.all()):  # host read: some sequence needs the direct inverse
+        all_verified = verified.all()
+        if shard is not None:
+            all_verified = shard.agree(all_verified).all()
+        if not bool(all_verified):  # host read: some sequence needs the direct inverse
             Pi = torch.where(verified[:, None, None], X_w, _spd_inverse(P_temp))
         else:
             Pi = X_w
@@ -239,7 +245,12 @@ def update_iterated(
         done = done | (run & done_new)
         # host read: whether all are done, and whether any re-searches next
         nxt = converge & (i > -1) & ~done if search_on_converge else torch.zeros_like(done)
-        all_done, any_search = torch.stack([done.all(), nxt.any()]).tolist()
+        flags = torch.stack([done.all(), nxt.any()])
+        if shard is None:
+            all_done, any_search = flags.tolist()
+        else:
+            f = shard.agree(flags)
+            all_done, any_search = bool(f[:, 0].all()), bool(f[:, 1].any())
         if all_done:
             break
 

@@ -88,6 +88,41 @@ def _batch_rows(m: VoxelHashMap, rows):
     return m.tab.reshape(B * R, SLOTS, 5), rows + off
 
 
+def _num_rows(m: VoxelHashMap, shard=None) -> int:
+    """Rows of one sequence's whole table; a shard holds 1/size of them."""
+    R = m.tab.shape[-3]
+    return R if shard is None else R * shard.size
+
+
+def _window_table(m: VoxelHashMap, b_all, shard=None):
+    """The table a window search reads and the window's row ids in it.
+    Unsharded: the map's own table (`_batch_rows`). On a map whose rows
+    are sharded over an mp group (each rank owning a contiguous range of
+    every sequence's rows): the union of every rank's window rows, filled
+    by their owners and gathered exactly, as one compact table in row
+    order, with `b_all` re-indexed into it. Its rows hold the bits of the
+    whole table's, so a search over it finds what the whole table gives."""
+    if shard is None:
+        return _batch_rows(m, b_all)
+    R_loc = m.tab.shape[-3]
+    R = R_loc * shard.size
+    flat = m.tab.reshape(-1, SLOTS, 5)
+    B = flat.shape[0] // R_loc
+    off = (torch.arange(B, device=b_all.device) * R).reshape((B,) + (1,) * (b_all.dim() - 1))
+    g = b_all + off
+    used = torch.zeros(B * R, dtype=torch.bool, device=b_all.device)
+    used[g.reshape(-1)] = True
+    used = shard.union(used)
+    ids = torch.nonzero(used)[:, 0]  # host sync; `used` is the same on every rank
+    own = ids % R - shard.rank * R_loc
+    mine = (own >= 0) & (own < R_loc)
+    local = (ids // R) * R_loc + torch.clamp(own, 0, R_loc - 1)
+    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+    table = shard.assemble(torch.where(mine[:, None, None], flat[local], zero))
+    remap = torch.cumsum(used.to(torch.int64), 0) - 1
+    return table, remap[g]
+
+
 def _svx(keys):
     """Supervoxel key: arithmetic shift, floor(k / 2) for negatives too."""
     return keys >> 1
@@ -154,15 +189,21 @@ def _segment_rank(seg_start, member):
     return exc - base
 
 
-def insert(m: VoxelHashMap, pts, covs, mask) -> VoxelHashMap:
+def insert(m: VoxelHashMap, pts, covs, mask, shard=None) -> VoxelHashMap:
     """Insert world points ([B,] N, 3) with stored covariances: one sort by
     (sequence, row, voxel fingerprint, cov, batch index) and one
     uniquely-indexed write. Lowest covariance wins a voxel; new voxels take
     the rank-th empty lane of their row; a full row may displace its worst
     record once (counted in n_evicted) or drops the candidate (counted in
-    n_dropped)."""
+    n_dropped).
+
+    On a row-sharded map (`shard`, see `_window_table`) every rank takes
+    all N points, treats the rows it does not own as "no row" and writes
+    its own rows; a row's decisions depend on that row's points alone, so
+    each comes out as on the whole table. The drop and eviction counts are
+    summed over the ranks."""
     if m.tab.dim() == 3:
-        return tree.squeeze(insert(*tree.unsqueeze((m, pts, covs, mask))))
+        return tree.squeeze(insert(*tree.unsqueeze((m, pts, covs, mask)), shard=shard))
     B, R = m.tab.shape[:2]
     T = R * SLOTS
     N = pts.shape[1]
@@ -170,7 +211,11 @@ def insert(m: VoxelHashMap, pts, covs, mask) -> VoxelHashMap:
     dev = m.tab.device
     keys = voxel_key(m, pts)
     fp = _fingerprint(keys).reshape(-1)
-    b = torch.where(mask, _hash(_svx(keys), R), torch.full_like(keys[..., 0], R))
+    b = _hash(_svx(keys), _num_rows(m, shard))
+    if shard is not None:  # the rank's own rows, numbered from 0
+        b = b - shard.rank * R
+        mask = mask & (b >= 0) & (b < R)
+    b = torch.where(mask, b, torch.full_like(keys[..., 0], R))
     # sort key of (sequence, row): each sequence's rows and its "no row" R
     # sit after the previous sequence's
     g = (b + torch.arange(B, device=dev)[:, None] * (R + 1)).reshape(-1)
@@ -229,6 +274,8 @@ def insert(m: VoxelHashMap, pts, covs, mask) -> VoxelHashMap:
     tab = merge_ops.merge_rows(m.tab.reshape(B * T, 5), tgt, rec_s)
     dropped = torch.sum((over & ~evict).reshape(B, N), dim=-1).to(torch.int32)
     evicted = torch.sum(evict.reshape(B, N), dim=-1).to(torch.int32)
+    if shard is not None:
+        dropped, evicted = shard.sum(dropped, evicted)
     return m._replace(
         tab=tab.reshape(B, R, SLOTS, 5),
         n_dropped=m.n_dropped + dropped,
@@ -264,9 +311,10 @@ def transform(m: VoxelHashMap, dq, dt) -> VoxelHashMap:
     return insert(fresh, pts, covs, occ)
 
 
-def size(m: VoxelHashMap):
-    """Occupied cells ([B])."""
-    return torch.sum(m.tab[..., 0] != 0, dim=(-2, -1))
+def size(m: VoxelHashMap, shard=None):
+    """Occupied cells ([B]); of the whole table for a row-sharded map."""
+    n = torch.sum(m.tab[..., 0] != 0, dim=(-2, -1))
+    return n if shard is None else shard.sum(n)
 
 
 def flatten(m: VoxelHashMap):
@@ -354,14 +402,14 @@ def _dup_rows(b_all):
     return torch.any(eq & tri, dim=-1)
 
 
-def _window_rows(m: VoxelHashMap, queries, radius: int, qmask=None):
+def _window_rows(m: VoxelHashMap, queries, radius: int, qmask=None, shard=None):
     """The window of each query ([B,] Q, 3): its supervoxel rows ([B,] Q, V)
     of its own sequence's table over the ball-pruned offsets of `radius`,
     and which of them are alive (not a repeat of an earlier offset's row,
     and the query not masked off). Masked queries fetch row 0."""
     offs = _offsets(radius, m.tab.device)
     anchors = _svx(voxel_key(m, queries) - radius)
-    b_all = _hash(anchors[..., None, :] + offs, m.tab.shape[-3])  # ([B,] Q, V)
+    b_all = _hash(anchors[..., None, :] + offs, _num_rows(m, shard))  # ([B,] Q, V)
     if qmask is not None:
         b_all = torch.where(qmask[..., None], b_all, torch.zeros_like(b_all))
     alive = ~_dup_rows(b_all)
@@ -377,7 +425,8 @@ def _take(x, idx):
     return torch.gather(x, 1, idx)
 
 
-def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool = False):
+def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool = False,
+                shard=None):
     """k nearest stored points over the supervoxel window of `radius`, for
     queries ([B,] Q, 3) in their own sequence's table. The kernel path
     hands the whole window of every sequence to one launch of the fused
@@ -388,9 +437,9 @@ def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool 
     dev = m.tab.device
     lead = queries.shape[:-1]
     big = torch.finfo(dtype).max
-    b_all, alive = _window_rows(m, queries, radius)
+    b_all, alive = _window_rows(m, queries, radius, shard=shard)
     V = b_all.shape[-1]
-    tab, rows = _batch_rows(m, b_all)
+    tab, rows = _window_table(m, b_all, shard)
     rows, alive, queries = rows.reshape(-1, V), alive.reshape(-1, V), queries.reshape(-1, 3)
     Q = queries.shape[0]
 
@@ -505,6 +554,7 @@ def knn_cached(
     accept_k: int = NUM_MATCH_POINTS,
     cache_k: int = CACHE_K,
     use_kernel: bool = False,
+    shard=None,
 ):
     """k-NN (k = accept_k) plus the compact top-`cache_k` candidate cache,
     for queries ([B,] Q, 3) in their own sequence's map.
@@ -518,16 +568,22 @@ def knn_cached(
     demand exceeds it. The tier is chosen on the host from one device read
     (the batch's largest escalation count); a sequence with at most 256
     escalations gets the same answer from either tier, so each sequence's
-    result is the one it would get alone."""
+    result is the one it would get alone.
+
+    On a row-sharded map (`shard`) each rank searches its own queries
+    (its measurement lanes): the windows read the gathered compact table
+    (`_window_table`), the escalation ranks and budget count every rank's
+    escalations of the sequence (an exclusive prefix of the ranks'
+    counts), and n_miss is summed over the ranks."""
     assert cache_k >= accept_k, (cache_k, accept_k)
     dtype = m.tab.dtype
     dev = m.tab.device
     queries = queries.to(dtype).contiguous()
     Q = queries.shape[-2]
     big = torch.finfo(dtype).max
-    b_all, alive = _window_rows(m, queries, radius, qmask)
+    b_all, alive = _window_rows(m, queries, radius, qmask, shard)
     V = b_all.shape[-1]
-    tab, rows = _batch_rows(m, b_all)
+    tab, rows = _window_table(m, b_all, shard)
     window = knn_ops.knn_window if use_kernel else knn_ops.knn_window_plain
     cache = window(tab, queries.reshape(-1, 3), rows.reshape(-1, V), alive.reshape(-1, V), cache_k)
     cache_pts, cache_covs, cache_d2 = (c.reshape(*queries.shape[:-1], *c.shape[1:]) for c in cache)
@@ -544,19 +600,29 @@ def knn_cached(
             need = need & qmask
         return need
 
+    def n_missed(d2k, cnt):
+        n = torch.sum(misses(d2k, cnt), dim=-1).to(torch.int32)
+        return n if shard is None else shard.sum(n)
+
     if wide_budget <= 0 or wide_radius <= radius:
-        n_miss = torch.sum(misses(nn_d2, nn_cnt), dim=-1).to(torch.int32)
+        n_miss = n_missed(nn_d2, nn_cnt)
         return (nn_pts, nn_covs, nn_d2, nn_cnt, n_miss, cache_pts, cache_covs, cache_valid)
 
     need = misses(nn_d2, nn_cnt)
     needi = need.to(torch.int64)
-    rank = torch.cumsum(needi, -1) - needi
+    rank = torch.cumsum(needi, -1) - needi  # the query's slot in this rank's wide search
+    count = torch.sum(needi, -1)
+    grank = rank  # its rank among the sequence's escalations
+    if shard is not None:
+        counts = shard.gather(count)
+        grank = rank + (torch.cumsum(counts, 0) - counts)[shard.rank][..., None]
+        count = counts.sum(0)  # the same on every rank: so is the tier below
     small = min(256, wide_budget)
     budget = wide_budget
     if small < wide_budget:
-        budget = wide_budget if int(torch.amax(torch.sum(needi, -1))) > small else small
+        budget = wide_budget if int(torch.amax(count)) > small else small
 
-    valid = need & (rank < budget)
+    valid = need & (grank < budget)
     ar = torch.arange(Q, device=dev).expand(rank.shape)
     tgt = torch.where(valid, rank, budget + ar)
     inv = torch.full((*rank.shape[:-1], budget + Q), Q, dtype=torch.int64, device=dev)
@@ -564,7 +630,7 @@ def knn_cached(
     safe = torch.clamp(inv[..., :budget], max=Q - 1)
     w_pts, w_covs, w_d2, w_cnt = _knn_window(
         m, torch.take_along_dim(queries, safe[..., None], dim=-2), cache_k, wide_radius,
-        use_kernel=use_kernel,
+        use_kernel=use_kernel, shard=shard,
     )
     r = torch.clamp(rank, max=budget - 1)
     w_pts_r = torch.take_along_dim(w_pts, r[..., None, None], dim=-3)
@@ -580,5 +646,5 @@ def knn_cached(
     cache_pts = torch.where(vcol[..., None], w_pts_r, cache_pts)
     cache_covs = torch.where(vcol, w_covs_r, cache_covs)
     cache_valid = torch.where(vcol, w_valid, cache_valid)
-    n_miss = torch.sum(misses(o_d2, o_cnt), dim=-1).to(torch.int32)
+    n_miss = n_missed(o_d2, o_cnt)
     return (o_pts, o_covs, o_d2, o_cnt, n_miss, cache_pts, cache_covs, cache_valid)

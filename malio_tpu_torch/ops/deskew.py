@@ -83,15 +83,18 @@ def lanes_for(points: int) -> int:
     return 3 if points <= THREE_LANES_MAX_POINTS else 1
 
 
-def deskew_points(pts, sp: spl.Spline, ext_q, ext_t, lt_q, lt_t):
+def deskew_points(pts, sp: spl.Spline, ext_q, ext_t, lt_q, lt_t, layout_points=None):
     """Deskew ([B,] L, N, 4) points; same contract as `deskew_points_plain`.
     CPU tensors run the plain version; CUDA tensors launch the kernel once
-    for all B sequences, in the layout `lanes_for(B * L * N)` picks. It
+    for all B sequences, in the layout `lanes_for(B * L * N)` picks, or
+    `lanes_for(layout_points)` for a slice of a larger set (a rank's raw
+    points), so that each point gets the bits the whole set would. It
     reads the spline and the quaternion frames as they are: the wrapper
     launches no other device work."""
     if pts.device.type == "cpu":
         return deskew_points_plain(pts, sp, ext_q, ext_t, lt_q, lt_t)
-    return _launch(pts, sp, ext_q, ext_t, lt_q, lt_t, lanes_for(pts[..., 0].numel()))
+    n = pts[..., 0].numel() if layout_points is None else layout_points
+    return _launch(pts, sp, ext_q, ext_t, lt_q, lt_t, lanes_for(n))
 
 
 def _launch(pts, sp, ext_q, ext_t, lt_q, lt_t, lanes):

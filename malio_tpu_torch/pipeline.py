@@ -142,7 +142,15 @@ def _nanmedian(v, mask):
     return torch.where(c[:, 0] > 0, med, torch.full_like(med, float("nan")))
 
 
-def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
+def _lanes(shard, M: int, *xs):
+    """This rank's contiguous share of the M lanes of each x (B, M, ...)."""
+    if M % shard.size:
+        raise ValueError(f"step: {shard.size} ranks do not divide {M} measurement lanes")
+    n = M // shard.size
+    return tuple(x[:, shard.rank * n : (shard.rank + 1) * n] for x in xs)
+
+
+def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=None):
     """One fusion round of B sequences in lockstep (carry and group with a
     leading B), or of one sequence (without it: the batch of one). Returns
     (new carry, StepOutput) in the form it was given.
@@ -150,13 +158,28 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
     Each sequence gets what the reference's jax.vmap(pipeline.step) gives
     it: where the reference branches (the map_init cond, the IEKF loop,
     the re-search cond, the k-NN tier) the port selects per sequence, and
-    the host reads one value for the batch, never one per sequence."""
+    the host reads one value for the batch, never one per sequence.
+
+    `shard` (an mp group, distributed/collectives.py) runs the round over
+    its ranks, as the JAX package's mp mesh axis does
+    (distributed/sharding.py): `group.pts` / `pts_mask` hold this rank's
+    slice of the raw point axis and `carry.map.tab` its rows of every
+    sequence's table; every other field is the same on every rank. Each
+    rank deskews its raw slice, which one exact gather joins before the
+    downsample; after the lane compaction it searches, fits and weights
+    its share of the measurement lanes; the insert takes every lane and
+    writes the rank's rows. The outputs and the new carry's replicated
+    fields come out the same on every rank."""
     dev = resolve_device(device)
     if carry.P.device.type != dev.type or group.pts.device.type != dev.type:
         raise ValueError(f"step: carry and group must live on {dev}")
     if carry.P.dim() == 2:  # one sequence: a batch of one
-        new_carry, out = step(cfg, tree.unsqueeze(carry), tree.unsqueeze(group), device=dev)
+        new_carry, out = step(cfg, tree.unsqueeze(carry), tree.unsqueeze(group), device=dev,
+                              shard=shard)
         return tree.squeeze(new_carry), tree.squeeze(out)
+    if shard is not None and group.pts.shape[-2] * shard.size != cfg.max_raw_points:
+        raise ValueError(f"step: a rank holds {group.pts.shape[-2]} raw points a LiDAR, not "
+                         f"{cfg.max_raw_points} / {shard.size}")
     B = carry.P.shape[0]
     L = cfg.num_lidars
     dtype = carry.x.pos.dtype
@@ -165,13 +188,16 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
 
     und = prop.undistort(
         cfg, carry.x, carry.P, carry.hist, group, carry.Q, carry.last_in,
-        carry.last_imu, carry.last_end_t, carry.mean_acc_norm,
+        carry.last_imu, carry.last_end_t, carry.mean_acc_norm, shard=shard,
     )
+    pts_deskewed, pt_epoch, pts_mask = und.pts_deskewed, und.pt_epoch, group.pts_mask
+    if shard is not None:  # every rank's raw slice, joined along the point axis
+        parts = shard.gather(pts_deskewed, pt_epoch, pts_mask)
+        pts_deskewed, pt_epoch, pts_mask = (torch.cat(p.unbind(0), dim=2) for p in parts)
 
     # ---- per-LiDAR voxel downsample (every LiDAR of every sequence in one call) ----
     ds_pts, ds_aux, ds_mask = pre.voxel_downsample(
-        und.pts_deskewed, und.pt_epoch[..., None].to(dtype), group.pts_mask,
-        cfg.filter_size_surf, M_DS,
+        pts_deskewed, pt_epoch[..., None].to(dtype), pts_mask, cfg.filter_size_surf, M_DS,
     )
     ds_epoch = torch.round(ds_aux[..., 0]).long()
     flat_pts = ds_pts.reshape(B, M, 3)
@@ -218,15 +244,20 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
         cov=torch.where(is_base_l[..., None, None], u.cov, c.cov),
     )
 
+    # the lanes this rank searches, fits and weights (all of them unsharded)
+    loc_pts, loc_epoch, loc_mask, loc_lidar = (
+        (flat_pts, flat_epoch, flat_mask, flat_lidar) if shard is None
+        else _lanes(shard, M, flat_pts, flat_epoch, flat_mask, flat_lidar)
+    )
     scan_data = meas.ScanData(
-        pts_body=flat_pts, pt_lidar=flat_lidar, pt_epoch=flat_epoch,
-        pt_mask=flat_mask, tc_q=und.tc_q, tc_t=und.tc_t, base=und.base,
+        pts_body=loc_pts, pt_lidar=loc_lidar, pt_epoch=loc_epoch,
+        pt_mask=loc_mask, tc_q=und.tc_q, tc_t=und.tc_t, base=und.base,
         unc_q=unc_comp.q, unc_t=unc_comp.t, unc_cov=unc_comp.cov,
         epoch_count=und.epoch_count,
     )
 
     # ---- the round's k-NN search + iterated update (where the map exists) ----
-    h_share, cache0 = meas.make_h_share(cfg, map_state, scan_data, und.x)
+    h_share, cache0 = meas.make_h_share(cfg, map_state, scan_data, und.x, shard=shard)
     upd = esekf.IEKFResult(
         x=und.x, P=und.P, iterations=torch.zeros((B,), dtype=torch.int32, device=dev),
         valid=torch.zeros((B,), dtype=torch.bool, device=dev), cache=cache0, Pi=carry.Pi,
@@ -235,7 +266,7 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
         run = esekf.update_iterated(
             und.x, und.P, h_share, cache0, max_iter=cfg.max_iteration,
             limit=cfg.converge_limit, search_on_converge=not cfg.single_search,
-            Pi0=carry.Pi,
+            Pi0=carry.Pi, shard=shard,
         )
         upd = tree.where(carry.map_init, run, upd)
 
@@ -243,12 +274,13 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
     init_col = carry.map_init[:, None]
     normal_y = torch.where(init_col, upd.cache.normal_y, torch.full((), 0.001, dtype=dtype, device=dev))
     world_pts = _points_to_world(upd.x, flat_pts, flat_lidar, und.tc_q, und.tc_t)
+    loc_world = world_pts if shard is None else _lanes(shard, M, world_pts)[0]
     beg_min = torch.amin(group.beg_t, dim=-1)
     first_t = torch.where(carry.step_count == 0, beg_min, carry.first_t - group.t_shift)
     ekf_inited = ((beg_min - first_t) >= cfg.init_time)[:, None]
     fs = cfg.filter_size_map
-    mid = (torch.floor(world_pts / torch.full((), fs, dtype=dtype, device=dev)) + 0.5) * fs
-    dist_mid = torch.sum((world_pts - mid) ** 2, dim=-1)
+    mid = (torch.floor(loc_world / torch.full((), fs, dtype=dtype, device=dev)) + 0.5) * fs
+    dist_mid = torch.sum((loc_world - mid) ** 2, dim=-1)
     nn = upd.cache.nn_pts
     k_valid = torch.arange(nn.shape[-2], device=dev) < upd.cache.nn_cnt[..., None]
     near0_far = torch.all((nn[..., 0, :] - mid).abs() > 0.5 * fs, dim=-1)
@@ -259,8 +291,13 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
     prefilter = torch.where(
         (upd.cache.nn_cnt > 0) & ekf_inited & init_col, need_add, torch.ones_like(need_add)
     )
-    ins_mask = flat_mask & (normal_y <= cfg.cov_threshold) & prefilter
-    map_state = vh.insert(map_state, world_pts, normal_y, ins_mask)
+    ins_mask = loc_mask & (normal_y <= cfg.cov_threshold) & prefilter
+    n_effective = torch.sum(upd.cache.selected, dim=-1)
+    if shard is not None:  # the insert and the outputs take every rank's lanes
+        g_ny, g_ins, g_eff = shard.gather(normal_y, ins_mask, n_effective)
+        normal_y, ins_mask = torch.cat(g_ny.unbind(0), dim=1), torch.cat(g_ins.unbind(0), dim=1)
+        n_effective = g_eff.sum(0)
+    map_state = vh.insert(map_state, world_pts, normal_y, ins_mask, shard=shard)
 
     end_t = torch.amax(group.end_t, dim=-1)
     new_carry = LioCarry(
@@ -270,7 +307,7 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
         box_init=box_init, map_init=torch.ones_like(carry.map_init),
         step_count=carry.step_count + 1, first_t=first_t,
     )
-    msize = vh.size(map_state)
+    msize = vh.size(map_state, shard)
     bq = tree.take(upd.x.ext_r, und.base)
     out = StepOutput(
         pos=upd.x.pos,
@@ -278,7 +315,7 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda"):
         pose_cov=upd.P[:, :6, :6],
         end_time=end_t,
         iterations=upd.iterations,
-        n_effective=torch.sum(upd.cache.selected, dim=-1),
+        n_effective=n_effective,
         map_size=msize,
         map_load=msize.to(dtype) / cfg.map_capacity,
         map_dropped=map_state.n_dropped,
@@ -330,7 +367,17 @@ def apply_world_correction(cfg, carry: LioCarry, dq, dt) -> LioCarry:
         re-centred on the corrected pose and the map evicted to it.
 
     The IEKF warm start Pi is dropped: the information matrix changed
-    frame."""
+    frame.
+
+    A carry whose map holds fewer cells than `cfg.map_capacity` is one mp
+    rank's shard (distributed/sharding.carry_sharding): the re-hash needs
+    the whole table, and no distributed path corrects one, so it raises."""
+    if carry.map.capacity != cfg.map_capacity:
+        raise NotImplementedError(
+            f"apply_world_correction: the carry's map holds {carry.map.capacity} of the "
+            f"config's {cfg.map_capacity} cells (a shard of a row-sharded map); a world "
+            f"correction of a sharded map is not supported"
+        )
     dtype = carry.x.pos.dtype
     dq = so3.quat_normalize(dq.to(dtype))
     dt = dt.to(dtype)

@@ -172,9 +172,12 @@ def _append(h: History, t, q, p, cov, inp, valid):
 
 
 def undistort(cfg, x: st.State, P, hist: History, group: MeasureGroup, Q,
-              last_in, last_imu, last_end_t, mean_acc_norm) -> UndistortResult:
+              last_in, last_imu, last_end_t, mean_acc_norm, shard=None) -> UndistortResult:
     """One round's undistortion for B sequences (every argument with a
-    leading B)."""
+    leading B). With `shard` (an mp group) `group.pts` holds this rank's
+    slice of the raw point axis: the per-point results (`pts_deskewed`,
+    `pt_epoch`) are the slice's, and the deskew kernel takes the layout of
+    the whole set."""
     B = P.shape[0]
     L = x.num_lidars
     dtype = x.pos.dtype
@@ -280,7 +283,8 @@ def undistort(cfg, x: st.State, P, hist: History, group: MeasureGroup, Q,
     # ---- 6. point deskew (all sequences in one launch) ----
     ext_q, ext_t = x_f.ext_r, x_f.ext_t
     if kernel_enabled(cfg.deskew_kernel, group.pts):
-        out = deskew_ops.deskew_points(group.pts, sp, ext_q, ext_t, lt_q, lt_t)
+        whole = {} if shard is None else {"layout_points": group.pts[..., 0].numel() * shard.size}
+        out = deskew_ops.deskew_points(group.pts, sp, ext_q, ext_t, lt_q, lt_t, **whole)
     else:
         out = deskew_ops.deskew_points_plain(group.pts, sp, ext_q, ext_t, lt_q, lt_t)
     pts_deskewed = out[..., :3]

@@ -9,7 +9,9 @@ with windows that reach the last sequence's last row. The deskew kernel in both 
 it staged in shared memory) on ragged point counts whose warps hold points
 of two LiDARs, 1 to 32 LiDARs, splines with no and with one valid
 interval, times exactly on the control grid and NaN times, and 3 x 65,536
-points; the layout the wrapper picks by point count; its refusals. A batch
+points; the layout the wrapper picks by point count; a slice of the raw
+point axis (an mp rank's) deskewed in the whole set's layout keeps the
+whole set's bits; its refusals. A batch
 of sequences in one launch: each sequence equals its own launch (B = 1)
 and the plain version, with sequences of different spline windows and
 time origins, one whose times are all NaN, and point counts whose warps
@@ -349,6 +351,25 @@ def test_deskew_wrapper_counts_batched_shapes(card):
     after = deskew.deskew_points.launches_by_shape
     assert after[4, 3, 4096, 64] == before.get((4, 3, 4096, 64), 0) + 1
     assert deskew.lanes_for(4 * 3 * 4096) == 1  # 49,152 points: past THREE_LANES_MAX_POINTS
+
+
+@pytest.mark.parametrize("L,N,mp", [(1, 65536, 2), (3, 4096, 2), (2, 40000, 4)])
+def test_deskew_slice_keeps_the_whole_sets_bits(card, L, N, mp):
+    """An mp rank's contiguous slice of the raw point axis, deskewed in the
+    layout of the whole set (`layout_points`), gets the bits of the whole
+    set's launch. The two layouts differ in the last bits of some points,
+    and at L = 1, N = 65,536 over mp = 2 (and L = 2, N = 40,000 over
+    mp = 4) the slice alone would take three lanes a point where the
+    whole set takes one."""
+    args = _deskew_args(L, N, 96, None, "spread", card)
+    whole = deskew.deskew_points(*args)
+    n = N // mp
+    for j in range(mp):
+        part = deskew.deskew_points(args[0][:, j * n : (j + 1) * n].contiguous(), *args[1:],
+                                    layout_points=L * N)
+        assert torch.equal(part, whole[:, j * n : (j + 1) * n]), j
+    if L * N > deskew.THREE_LANES_MAX_POINTS:
+        assert (deskew.lanes_for(L * N), deskew.lanes_for(L * n)) == (1, 3)
 
 
 def _batched_map(B, dev, seed=11):

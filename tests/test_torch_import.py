@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of `malio_tpu_torch` and
-`bench_torch.py` loads neither JAX nor the JAX package, no source of the
-port, of `bench_torch.py` or of `chip_smoke.py` imports them, and
+"""The port stands alone: importing every module of `malio_tpu_torch` (its
+`distributed` package too) and `bench_torch.py` loads neither JAX nor the
+JAX package, no source of the port, of `bench_torch.py` or of
+`chip_smoke.py` imports them, and
 `chip_smoke.py` refuses to run (non-zero exit, no result line) where no
 CUDA device is present."""
 import json
@@ -38,7 +39,8 @@ def test_sources_import_no_jax():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("online", "checkpoint", "ba", "smoother", "posegraph", "segment", "batched",
                 "tree", "linalg", "metrics", "run_dataset", "ops/merge", "eval/ate", "io/pcd",
-                "io/dataset", "io/export", "io/native", "io/player"):
+                "io/dataset", "io/export", "io/native", "io/player", "distributed/__init__",
+                "distributed/sharding", "distributed/multihost", "distributed/collectives"):
         assert f"malio_tpu_torch/{mod}.py" in names, mod
     bad = [str(f.relative_to(ROOT)) for f in files if FORBIDDEN.search(f.read_text())]
     assert not bad, bad
