@@ -9,7 +9,8 @@ PyTorch version on the card at the main path's shapes: the fused k-NN
 window kernel on the map that run built and on one of its rounds' queries
 (bit-equal, also with ties, exhausted rows, all-invalid windows, masked
 queries and duplicate rows planted), the deskew kernel within atol 2e-5
-(for coordinates under 64 m) with equal ok flags, compared with the world
+of the plain version run in f64, the exact deskew (for coordinates under
+64 m), with the f32 plain version's ok flags, compared with the world
 origin at the scan-end position: on that run's last-round points, spline and frames, and on
 seeded inputs at the path's shape (3 x 4096 points, 64 control points),
 at the Config default (1 x 65,536, 96) and at 3 x 65,536, in both of its
@@ -57,8 +58,13 @@ rounds through distributed.sharding's worker in two processes sharing
 the card over gloo, dp = 2 x mp = 1 (seeds 0 and 1, each bit-equal to
 its own run) and dp = 1 x mp = 2 (within 1e-3 m of the main path, map
 sizes equal), every rank's launches, collectives and round times, and
-the three kernels at an mp rank's shapes. Any failure exits non-zero;
-the last line is the device summary.
+the three kernels at an mp rank's shapes; last the soak cell: 20 s of
+soak.py's stream (3 x 1024 points, a 2^19-slot map) through soak.run,
+finite, within the ATE gate, no lane drop, map drops within the map
+layout's contract, every kernel once a round in every chunk, the card's
+memory at each quartile and the launches a round in the first and the
+last, and the three kernels on its last round's arguments. Any failure
+exits non-zero; the last line is the device summary.
 
     python3 chip_smoke.py                               # the smoke run
     python3 chip_smoke.py --save-stage-inputs FILE      # ... keeping the map, the
@@ -139,8 +145,9 @@ TRACE_LEAD_IN_S = 0.1  # host time between a profiler session's start and its fi
 LEAD_IN_ADDS = 16
 TRACE_ATTEMPTS = 5
 TRACES = []  # one entry per profiler trace: calls (or rounds), events, markers found
-# max |deskew kernel - plain| for coordinates under 64 m (about 5 ulp of
-# them); it doubles with the ulp past that (deskew_atol)
+# max |deskew kernel - exact| for coordinates under 64 m (about 5 ulp of
+# them), exact being the plain version run in f64 on the same inputs; it
+# doubles with the ulp past that (deskew_atol)
 DESKEW_ATOL = 2e-5
 # the merge kernel at benchmarks/micro_r4b.py's shapes: tables of 2^17,
 # 2^19 and 2^21 rows of 5 f32, 12,288 sorted unique updates
@@ -168,6 +175,13 @@ DIST_ROUNDS = 24
 DIST_SEED1_SECONDS = 4.0  # seed 1's sequence: its IMU initialisation and DIST_ROUNDS rounds
 DIST_MP = 2
 DIST_DEADLINE_S = 300  # a world past it fails the phase; a collective waits as long
+# the soak cell (malio_tpu_torch/soak.py, scripts/soak_tpu.py's config and
+# stream): City01's length is 1309 s; the smoke run soaks 20 s of it (192
+# rounds), a depth cut (PERF.md §4: 30 s took the run past 750 s)
+SOAK_SECONDS = 20.0
+SOAK_POINTS = 1024
+SOAK_CHUNK = 8
+MAP_DROP_SHARE = 0.002
 
 
 def log(*a):
@@ -383,24 +397,15 @@ def knn_phase(m, queries, qmask, cfg, K, suffix=""):
     measurement lane, and the wide window over the first live queries at
     the path's tier (256) and at the full budget. A batch of maps (B, R,
     32, 5) and queries (B, Q, 3) goes to the kernel as the batched path
-    sends it: one flat (B R) table, rows offset by b R, B Q queries."""
-    from malio_tpu_torch.map import voxel_hash as vh
-
+    sends it (window_args)."""
     live = _live(queries, qmask)
     shapes = [
         ("knn_window", queries, cfg.knn_radius, qmask),
         ("knn_window_wide", live[..., :256, :], cfg.knn_wide_radius, None),
         ("knn_window_wide_budget", live[..., : cfg.knn_wide_budget, :], cfg.knn_wide_radius, None),
     ]
-    rows_out = []
-    for name, q, radius, mask in shapes:
-        q = q.contiguous()
-        b, alive = vh._window_rows(m, q, radius, mask)
-        tab, b = vh._batch_rows(m, b)
-        V = b.shape[-1]
-        rows_out.append(knn_row(name + suffix, (tab, q.reshape(-1, 3), b.reshape(-1, V),
-                                                alive.reshape(-1, V)), K))
-    return rows_out
+    return [knn_row(name + suffix, window_args(m, q, radius, mask), K)
+            for name, q, radius, mask in shapes]
 
 
 def knn_row(name, args, K):
@@ -528,35 +533,46 @@ def deskew_atol(args):
 
 
 def deskew_err(deskew, args, fn):
-    """fn (a deskew kernel launch) against deskew_points_plain on args
-    recentred: whether the ok flags are equal, max |kernel - plain|, its
-    limit (deskew_atol) and the plain result."""
+    """fn (a deskew kernel launch) against the plain version on args
+    recentred: whether its ok flags equal deskew_points_plain's, max
+    |kernel - exact| with exact deskew_points_plain run in f64 on the same
+    inputs (over the points whose flag the f64 run keeps), its limit
+    (deskew_atol), the f32 plain result and max |kernel - f32 plain|. Two
+    f32 results of the deskew's chain lie up to ~5 ulp apart 35 m out (the
+    f32 plain version 2.08e-5 from its f64 result on a soak's rounds), so
+    the f32 plain version is no reference at DESKEW_ATOL: the kernel is held
+    to the exact result."""
     import torch
+    from malio_tpu_torch import tree
 
     args = recentred(args)
     got, want = fn(*args), deskew.deskew_points_plain(*args)
+    exact = deskew.deskew_points_plain(*tree.map_tensors(
+        lambda t: t.double() if t.is_floating_point() else t, args))
     torch.cuda.synchronize()
-    return (bool(torch.equal(got[..., 3], want[..., 3])),
-            float((got[..., :3] - want[..., :3]).abs().max()), deskew_atol(args), want)
+    same = want[..., 3] == exact[..., 3]
+    err = float((got[..., :3].double() - exact[..., :3])[same].abs().max())
+    return (bool(torch.equal(got[..., 3], want[..., 3])), err, deskew_atol(args), want,
+            float((got[..., :3] - want[..., :3]).abs().max()))
 
 
 def deskew_check(args, lanes=None):
     """The deskew kernel (the wrapper's layout, or `lanes` per point)
-    against deskew_points_plain on args: equal ok flags, max |kernel -
-    plain| <= deskew_atol. Returns that max, its limit and the plain
-    result."""
+    against the plain version on args (deskew_err): ok flags equal to the
+    f32 plain version's, max |kernel - exact| <= deskew_atol. Returns that
+    max, its limit, the f32 plain result and max |kernel - f32 plain|."""
     from malio_tpu_torch.ops import deskew
 
     args = batch_args(args)
     fn = deskew.deskew_points if lanes is None else (
         lambda *a: deskew._launch(*a, lanes=lanes))
-    same_ok, err, atol, want = deskew_err(deskew, args, fn)
+    same_ok, err, atol, want, err_plain = deskew_err(deskew, args, fn)
     what = "default layout" if lanes is None else f"lanes={lanes}"
     if not same_ok:
         raise AssertionError(f"deskew ({what}): ok flags differ from plain")
     if not err <= atol:
-        raise AssertionError(f"deskew ({what}): max |kernel - plain| = {err} > {atol}")
-    return err, atol, want
+        raise AssertionError(f"deskew ({what}): max |kernel - exact| = {err} > {atol}")
+    return err, atol, want, err_plain
 
 
 def deskew_phase(name, args, floor):
@@ -572,14 +588,14 @@ def deskew_phase(name, args, floor):
     args = batch_args(args)
     pts, sp = args[0], args[1]
     B, L, N, C = *pts.shape[:3], sp.cps.shape[1]
-    err, atol, want = deskew_check(args)
+    err, atol, want, err_plain = deskew_check(args)
     ms = kernel_ms(lambda: deskew.deskew_points(*args), "deskew_kernel")
     c_ms = call_ms(lambda: deskew.deskew_points(*args))
     p_ms, p_ops = device_ms(lambda: deskew.deskew_points_plain(*args))
     p_call = call_ms(lambda: deskew.deskew_points_plain(*args), n=10)
     layouts = {}
     for lanes in (1, 3):
-        e, _, _ = deskew_check(args, lanes=lanes)
+        e = deskew_check(args, lanes=lanes)[0]
         layouts[f"lanes={lanes}"] = dict(
             ms=kernel_ms(lambda: deskew._launch(*args, lanes=lanes), "deskew_kernel"),
             max_abs_err=e)
@@ -593,8 +609,8 @@ def deskew_phase(name, args, floor):
     nops = n_ok * DESKEW_OPS_PER_POINT + (B * L * N - n_ok) * DESKEW_OPS_OUTSIDE
     b_ms, b_by = bound(nbytes, nops)
     lanes = deskew.lanes_for(B * L * N)
-    log(f"kernel {name} B={B} L={L} N={N} C={C} (lanes={lanes}): max |kernel - plain| {err:.3g} "
-        f"(atol {atol:.3g}), ok flags equal ({n_ok}/{B * L * N} inside); device {ms:.5f} ms, "
+    log(f"kernel {name} B={B} L={L} N={N} C={C} (lanes={lanes}): max |kernel - exact| {err:.3g} "
+        f"(atol {atol:.3g}; |kernel - f32 plain| {err_plain:.3g}), ok flags equal ({n_ok}/{B * L * N} inside); device {ms:.5f} ms, "
         f"call {c_ms:.4f} ms (plain device {p_ms:.4f} ms in {p_ops:.0f} device ops, call "
         f"{p_call:.4f} ms); bound {b_ms:.6f} ms by {b_by}, {b_ms + floor:.6f} ms with the launch "
         f"floor; no point inside the window {empty_ms:.5f} ms; layouts "
@@ -603,7 +619,8 @@ def deskew_phase(name, args, floor):
         name=name, route="cuda", source="malio_tpu_torch/csrc/deskew.cu",
         replaces="malio_tpu/ops/deskew_pallas.py:197", shape=f"B={B} L={L} N={N} C={C}",
         shape_key=(B, L, N, C), lanes=lanes,
-        max_abs_err=max([err] + [v["max_abs_err"] for v in layouts.values()]), atol=atol, ms=ms,
+        max_abs_err=max([err] + [v["max_abs_err"] for v in layouts.values()]), atol=atol,
+        f32_plain_abs_diff=err_plain, ms=ms,
         call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_call, plain_device_ops=p_ops,
         bound_ms=b_ms, bound_by=b_by, bound_with_floor_ms=b_ms + floor, bytes=nbytes, ops=nops,
         points_inside=n_ok, library_ms=None, library_call_ms=None, layouts=layouts,
@@ -719,7 +736,7 @@ def deskew_kernel_main(tree, inputs, outputs):
         args = batch_args(args)
         fn = lambda a=args: deskew.deskew_points(*a)
         results[name] = got = fn()
-        same_ok, err, atol, _ = deskew_err(deskew, args, deskew.deskew_points)
+        same_ok, err, atol, _, _ = deskew_err(deskew, args, deskew.deskew_points)
         row = dict(shape="B={} L={} N={} C={}".format(*args[0].shape[:3], args[1].cps.shape[1]),
                    ms=kernel_ms(fn, "deskew_kernel"), call_ms=call_ms(fn),
                    max_abs_err=err, atol=atol, ok_flags_equal=same_ok)
@@ -1694,6 +1711,60 @@ class _Recording:
         setattr(self.owner, self.name, self.fn)
 
 
+class _PathRecording:
+    """Inside it, the last call's arguments of the three kernels' callers on
+    a path of one sequence: `search` (the k-NN queries and their mask),
+    `deskew["args"]` (deskew_points' arguments) and `merge.args` (the
+    insert's merge_rows arguments)."""
+
+    def __enter__(self):
+        import types
+        from malio_tpu_torch import propagate as prop, tree
+        from malio_tpu_torch.map import voxel_hash as vh
+        from malio_tpu_torch.ops import deskew, merge
+
+        self.search, self.deskew = {}, {}
+        knn_cached = self._knn_cached = vh.knn_cached
+
+        def recording_knn_cached(m, queries, **kw):
+            # the path's rounds are batches of one: keep its one sequence
+            self.search.update(queries=queries[0], qmask=kw.get("qmask")[0])
+            return knn_cached(m, queries, **kw)
+
+        def recording_deskew(*args):
+            self.deskew["args"] = tree.squeeze(args)
+            return deskew.deskew_points(*args)
+
+        vh.knn_cached = recording_knn_cached
+        prop.deskew_ops = types.SimpleNamespace(deskew_points=recording_deskew,
+                                                deskew_points_plain=deskew.deskew_points_plain)
+        self.merge = _Recording(merge, "merge_rows").__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from malio_tpu_torch import propagate as prop
+        from malio_tpu_torch.map import voxel_hash as vh
+        from malio_tpu_torch.ops import deskew
+
+        self.merge.__exit__(*exc)
+        vh.knn_cached = self._knn_cached
+        prop.deskew_ops = deskew
+
+
+def window_args(m, queries, radius, qmask):
+    """knn_window's arguments (tab, queries, rows, alive) for `queries` on
+    map `m` at window `radius`, as voxel_hash sends them: a batch of maps
+    (B, R, 32, 5) and queries (B, Q, 3) as one flat (B R) table, rows
+    offset by b R, B Q queries."""
+    from malio_tpu_torch.map import voxel_hash as vh
+
+    q = queries.contiguous()
+    b, alive = vh._window_rows(m, q, radius, qmask)
+    tab, b = vh._batch_rows(m, b)
+    V = b.shape[-1]
+    return tab, q.reshape(-1, 3), b.reshape(-1, V), alive.reshape(-1, V)
+
+
 def merge_kernel_phase(path_args, floor):
     """The merge kernel at micro_r4b's shapes (T = 2^17, 2^19, 2^21 rows, N
     = 12,288 sorted unique updates), on the insert's own arguments of the
@@ -2254,6 +2325,83 @@ def _clone(tree):
     return tree.clone()
 
 
+def soak_phase(floor, dev="cuda"):
+    """The soak cell: soak.run (scan_steps in chunks of SOAK_CHUNK, each
+    fenced by a host copy) over SOAK_SECONDS of the soak's stream at its
+    full width (3 x 1024 raw points, 3072 measurement lanes uncapped, 2^19
+    map slots, f32 points, f64 P), the launch counts set to 0 just before
+    and read just after. Fails unless the trajectory and P are finite, the
+    ATE is within ATE_GATE_M, no measurement lane dropped, map drops within
+    the map layout's contract (MAP_DROP_SHARE of the insert candidates), and
+    every chunk launched the base-window k-NN, the deskew and the merge
+    once a round. Then each kernel on the last round's arguments
+    (knn_window_soak, deskew_soak, merge_rows_soak), checked against its
+    plain version and timed. Returns (report: soak.summary's keys, the
+    card's memory at each quartile, launches a round in the first and the
+    last quartile; launches; kernel rows)."""
+    import torch
+    from malio_tpu_torch import measurement as meas
+    from malio_tpu_torch import soak
+    from malio_tpu_torch.map import voxel_hash as vh
+
+    t0 = time.perf_counter()
+    cfg, groups, traj = soak.soak_sequence(SOAK_SECONDS, SOAK_POINTS, seed=0)
+    gen_s = time.perf_counter() - t0
+    reset_launches()
+    with _PathRecording() as rec:
+        res = soak.run(cfg, groups, torch.float32, dev, SOAK_CHUNK)
+    counts = read_launches("soak")
+    out = soak.summary(res, traj)
+    v_base = len(vh._svx_ball_offsets(cfg.knn_radius))
+    for c, by_kernel in enumerate(res["launches"]):
+        per = dict(knn_window=sum(n for (q, v, k), n in by_kernel["knn_window"].items()
+                                  if v == v_base),
+                   deskew=sum(by_kernel["deskew"].values()),
+                   merge_rows=sum(by_kernel["merge_rows"].values()))
+        if any(n != res["chunk"] for n in per.values()):
+            raise AssertionError(f"soak: chunk {c} of {res['chunk']} rounds launched {per} "
+                                 f"(base-window k-NN, deskew, merge), not one each a round")
+    if not out["finite"]:
+        raise AssertionError(f"soak: non-finite trajectory or P ({out['n_nonfinite_rounds']} "
+                             f"rounds, P_max {out['P_max']})")
+    if not out["ate_m"] <= ATE_GATE_M:
+        raise AssertionError(f"soak: ATE {out['ate_m']} m exceeds {ATE_GATE_M} m")
+    if out["meas_dropped_total"]:
+        raise AssertionError(f"soak: dropped {out['meas_dropped_total']} measurement lanes")
+    # the 2^19-slot table of the soak's config drops new voxels whose
+    # supervoxel row is full, as the reference's insert does (a row tail,
+    # re-offered and counted again each round; tests/test_torch_soak_evict.py
+    # holds the port's drops to the JAX ones): hold the drops to the map
+    # layout's contract, tests/test_map.py::test_surface_load_recall, at
+    # most 0.2% of the insert candidates offered (tests/test_soak.py counts
+    # its soak's drops against the same sum)
+    offered = int(res["n_insert"].sum())
+    if out["map_dropped_final"] > max(2, int(MAP_DROP_SHARE * offered)):
+        raise AssertionError(f"soak: {out['map_dropped_final']} map drops for {offered} insert "
+                             f"candidates (contract: {MAP_DROP_SHARE:.1%})")
+    quartiles = {name: soak.launches_per_round(res, k) for k, name in ((0, "first"), (3, "last"))}
+    log(f"soak: {out['rounds']} rounds ({SOAK_SECONDS} s of {cfg.num_lidars} x {SOAK_POINTS} "
+        f"points, {cfg.map_capacity} slots; stream made in {gen_s:.1f} s): {json.dumps(out)}")
+    for m in res["memory"]:
+        log(f"soak: device memory at the end of quartile {m['quartile']}: allocated "
+            f"{m['allocated']} B, reserved {m['reserved']} B")
+    for name, q in quartiles.items():
+        log(f"soak: launches a round, {name} quartile: {json.dumps(q)}")
+    m = res["carry"].map
+    K = meas.CAND_K
+    rows = [knn_row("knn_window_soak", window_args(m, rec.search["queries"],
+                                                   cfg.knn_radius, rec.search["qmask"]), K),
+            deskew_phase("deskew_soak", rec.deskew["args"], floor),
+            merge_phase("merge_rows_soak", *rec.merge.args, floor)]
+    for r in rows:
+        r["path"] = "soak"
+    report = dict(out, seconds=SOAK_SECONDS, stream_s=gen_s, memory=res["memory"],
+                  insert_candidates=offered,
+                  launches_per_round=quartiles,
+                  chunk_s=res["chunk_s"].tolist(), p_tr=res["p_tr"].tolist())
+    return report, counts, rows
+
+
 def gpu_name_and_limit():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2267,13 +2415,10 @@ def main(save_stage_inputs=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    import types
-
     import numpy as np
     import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
     from malio_tpu_torch import measurement as meas
-    from malio_tpu_torch import propagate as prop
-    from malio_tpu_torch import runner, tree
+    from malio_tpu_torch import runner
     from malio_tpu_torch.config import Config, flagship_config
     from malio_tpu_torch.eval.ate import ate_rmse
     from malio_tpu_torch.io.assemble import assemble_groups
@@ -2325,33 +2470,14 @@ def main(save_stage_inputs=None):
         if len(stamps) == RESUME_AT:  # the carry after round RESUME_AT, for the resume phase
             saved["carry"] = _clone(carry)
 
-    # keep the last round's k-NN queries and deskew arguments for the
-    # kernel and stage phases
-    last_search, last_deskew = {}, {}
-    knn_cached = vh.knn_cached
-
-    def recording_knn_cached(m, queries, **kw):
-        # the main path's rounds are batches of one: keep its one sequence
-        last_search.update(queries=queries[0], qmask=kw.get("qmask")[0])
-        return knn_cached(m, queries, **kw)
-
-    def recording_deskew(*args):
-        last_deskew["args"] = tree.squeeze(args)
-        return deskew.deskew_points(*args)
-
-    vh.knn_cached = recording_knn_cached
-    prop.deskew_ops = types.SimpleNamespace(deskew_points=recording_deskew,
-                                            deskew_points_plain=deskew.deskew_points_plain)
     reset_launches()
     t0 = time.perf_counter()
-    try:
-        with _Recording(merge, "merge_rows") as main_merge:
-            res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda",
-                                      callback=tick)
-            torch.cuda.synchronize()
-    finally:
-        vh.knn_cached = knn_cached
-        prop.deskew_ops = deskew
+    # keep the last round's kernel arguments for the kernel and stage phases
+    with _PathRecording() as rec:
+        res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda",
+                                  callback=tick)
+        torch.cuda.synchronize()
+    last_search, last_deskew, main_merge = rec.search, rec.deskew, rec.merge
     wall = time.perf_counter() - t0
     paths = {"main": read_launches("main")}
     by_shape = paths["main"]["knn_window"]
@@ -2483,8 +2609,10 @@ def main(save_stage_inputs=None):
                                                           smi)
     paths.update(dist_paths)
     done("distributed")
+    report["soak"], paths["soak"], soak_rows = soak_phase(floor)
+    done("soak")
 
-    kernels = knn_rows + desk_rows + merge_kernel_rows + batch_rows + dist_rows
+    kernels = knn_rows + desk_rows + merge_kernel_rows + batch_rows + dist_rows + soak_rows
     for r in kernels:
         r["floor_ms"] = floor
         if "K" in r:

@@ -7,8 +7,11 @@ version, the eager path of propagate.undistort over spline.get_pose_batch.
 
 `deskew_points` takes a CPU tensor to the plain version and a CUDA tensor
 to the kernel; there is no other fallback. The kernel works on rotation
-matrices, the plain version on quaternions: they agree to f32 round-off
-(atol 2e-5) with equal ok flags. The kernel takes all LiDARs of all B
+matrices, the plain version on quaternions, both in f32: the kernel is
+within atol 2e-5 of the plain version run in f64 (the exact deskew), with
+the f32 plain version's ok flags. (Two f32 results of the deskew's chain
+lie up to ~5 ulp apart 35 m out, so the f32 plain version is no reference
+at that limit.) The kernel takes all LiDARs of all B
 sequences of a batch in one launch, up to its caps (MAX_LIDARS,
 MAX_CONTROL_POINTS and MAX_SEQUENCES in the .cu); past them the wrapper
 raises a ValueError.

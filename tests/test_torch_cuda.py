@@ -16,8 +16,9 @@ of sequences in one launch: each sequence equals its own launch (B = 1)
 and the plain version, with sequences of different spline windows and
 time origins, one whose times are all NaN, and point counts whose warps
 and blocks end inside a sequence. k-NN is bit-equal; deskew
-agrees within atol 2e-5 with equal ok flags (rotation matrices in the
-kernel, quaternions in the plain version). `vh.knn` at K = 5 through the
+agrees within atol 2e-5 with the plain version run in f64 (the exact
+deskew) and has the f32 plain version's ok flags (rotation matrices in
+the kernel, quaternions in the plain version). `vh.knn` at K = 5 through the
 kernel equals it through the plain version; the back end's per-cell sums
 are the same bits on every call. The merge kernel (the insert's table
 write) equals its plain version and index_copy bit for bit: the first
@@ -28,7 +29,12 @@ tiles (updates on a tile's first and last row, rows that straddle two
 tiles, tables one row under and over a tile multiple, all updates in one
 tile, every row updated, every entry dead); 1,000 back-to-back calls of
 two shapes; replays of a CUDA graph that captured it; the insert through
-it equals the insert through the plain version; its refusals.
+it equals the insert through the plain version; its refusals. All three
+at the soak's shapes (malio_tpu_torch/soak.py: 3 x 1024 raw points, 3072
+measurement lanes, a 2^19-slot map of 16,384 rows): the k-NN base window
+Q = 3072, V = 8 and the wide tiers Q = 256 / 1024, V = 208; the deskew at
+1 x 3 x 1024 in both layouts; the insert's write into 2^19 table rows
+from 3072 entries, some or all of them dead.
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
@@ -42,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from malio_tpu_torch import ba, posegraph
+from malio_tpu_torch import ba, posegraph, tree
 from malio_tpu_torch import spline as spl
 from malio_tpu_torch.geometry import se3, so3
 from malio_tpu_torch.map import voxel_hash as vh
@@ -91,10 +97,15 @@ def _window(Q, V, seed, dev, R=64):
     return [torch.as_tensor(a, device=dev) for a in (tab, qs, rows, alive)]
 
 
-@pytest.mark.parametrize("Q,V,K", [(12, 1, 16), (37, 3, 5), (300, 8, 16), (40, 12, 16),
-                                   (64, 208, 16)])
-def test_knn_kernel_bit_equal_to_plain(card, Q, V, K):
-    args = _window(Q, V, seed=V, dev=card)
+SOAK_ROWS = (1 << 19) // vh.SLOTS  # the soak's map: 2^19 slots
+
+
+@pytest.mark.parametrize("Q,V,K,R", [(12, 1, 16, 64), (37, 3, 5, 64), (300, 8, 16, 64),
+                                     (40, 12, 16, 64), (64, 208, 16, 64),
+                                     (3072, 8, 16, SOAK_ROWS), (256, 208, 16, SOAK_ROWS),
+                                     (1024, 208, 16, SOAK_ROWS)])
+def test_knn_kernel_bit_equal_to_plain(card, Q, V, K, R):
+    args = _window(Q, V, seed=V, dev=card, R=R)
     before = knn.knn_window.launches
     got = knn.knn_window(*args, K)
     torch.cuda.synchronize()
@@ -234,6 +245,10 @@ def _deskew_args(L, N, C, num_valid, times, dev):
             so3.exp_so3(small(0.1)), small(1.0))
 
 
+def _f64(args):
+    return tree.map_tensors(lambda t: t.double() if t.is_floating_point() else t, args)
+
+
 _DESKEW_CASES = [
     (2, 777, 64, None, "spread"),  # ragged end, two LiDARs in a warp
     (3, 256, 64, 3, "spread"),  # num_valid 3: no point is ok
@@ -245,6 +260,7 @@ _DESKEW_CASES = [
     (2, 500, 64, None, "nan"),  # NaN times: unchanged, not ok
     (2, 40001, 96, None, "spread"),  # ragged, above the three-lane point count
     (3, 65536, 96, None, "spread"),  # 3 LiDARs at the Config default capacity
+    (3, 1024, 64, None, "spread"),  # the soak's raw points
 ]
 
 
@@ -258,7 +274,11 @@ def test_deskew_kernel_matches_plain(card, L, N, C, num_valid, times, lanes):
     torch.cuda.synchronize()
     assert deskew.deskew_points.launches == before + 1
     assert torch.equal(got[..., 3], want[..., 3])
-    assert float((got[..., :3] - want[..., :3]).abs().max()) <= 2e-5
+    # held to the exact deskew, the plain version run in f64 (two f32
+    # results lie up to ~5 ulp apart 35 m out)
+    exact = deskew.deskew_points_plain(*_f64(args))
+    same = want[..., 3] == exact[..., 3]
+    assert float((got[..., :3].double() - exact[..., :3])[same].abs().max()) <= 2e-5
     ok = want[..., 3] == 1
     if num_valid == 3:
         assert not ok.any()
@@ -325,9 +345,9 @@ def _deskew_batch(L, N, dev):
 @pytest.mark.parametrize("L,N", [(3, 4096), (2, 777), (1, 41)])
 def test_deskew_batch_equals_each_sequence(card, L, N, lanes):
     """One launch over a batch gives every sequence what its own launch
-    gives it, bit for bit, and the plain version's result within atol 2e-5
-    with equal ok flags; ragged N puts warp and block ends inside a
-    sequence (a block never straddles two)."""
+    gives it, bit for bit, and the plain version's result in f64 within
+    atol 2e-5 with the f32 plain version's ok flags; ragged N puts warp
+    and block ends inside a sequence (a block never straddles two)."""
     batch, seqs = _deskew_batch(L, N, card)
     before = deskew.deskew_points.launches
     got = deskew._launch(*batch, lanes=lanes)
@@ -337,7 +357,9 @@ def test_deskew_batch_equals_each_sequence(card, L, N, lanes):
     for b, args in enumerate(seqs):
         assert torch.equal(got[b], deskew._launch(*args, lanes=lanes)), b
     assert torch.equal(got[..., 3], want[..., 3])
-    assert float((got[..., :3] - want[..., :3]).abs().max()) <= 2e-5
+    exact = deskew.deskew_points_plain(*_f64(batch))
+    same = want[..., 3] == exact[..., 3]
+    assert float((got[..., :3].double() - exact[..., :3])[same].abs().max()) <= 2e-5
     ok = want[..., 3] == 1
     assert ok[0].any() and not ok[1].any() and not ok[3].any()
     assert torch.equal(got[3, ..., :3], batch[0][3, ..., :3])  # NaN times: unchanged
@@ -464,6 +486,17 @@ def test_merge_rows_kernel_bit_equal_to_plain(card, T, dtype):
         assert torch.equal(got, want), name
         assert torch.equal(got, lib), name
         assert merge.merge_rows.launches_by_shape[T, len(rows)] == before + 1
+
+
+@pytest.mark.parametrize("n_valid", [0, 611, 3072])
+def test_merge_rows_kernel_at_the_soak_insert(card, n_valid):
+    tab, idx, rec = chip_smoke.merge_path_inputs(1 << 19, 3072, n_valid, seed=n_valid)
+    got = merge.merge_rows(tab, idx, rec)
+    ok = idx >= 0
+    lib = tab.index_copy(0, idx[ok], rec[ok])
+    torch.cuda.synchronize()
+    assert torch.equal(got, merge.merge_rows_plain(tab, idx, rec))
+    assert torch.equal(got, lib)
 
 
 def _tile_case(kind, W, tw, rng):

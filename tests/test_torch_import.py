@@ -40,7 +40,8 @@ def test_sources_import_no_jax():
     for mod in ("online", "checkpoint", "ba", "smoother", "posegraph", "segment", "batched",
                 "tree", "linalg", "metrics", "run_dataset", "ops/merge", "eval/ate", "io/pcd",
                 "io/dataset", "io/export", "io/native", "io/player", "distributed/__init__",
-                "distributed/sharding", "distributed/multihost", "distributed/collectives"):
+                "distributed/sharding", "distributed/multihost", "distributed/collectives",
+                "soak", "run_synthetic", "run_batched", "play", "debug_pipeline"):
         assert f"malio_tpu_torch/{mod}.py" in names, mod
     bad = [str(f.relative_to(ROOT)) for f in files if FORBIDDEN.search(f.read_text())]
     assert not bad, bad

@@ -25,6 +25,7 @@ from malio_tpu_torch import batched as tbatched, checkpoint as tckpt, online as 
 from malio_tpu_torch import posegraph as tpg
 from malio_tpu_torch import interop, pipeline as tpipe, propagate as tprop, runner as trunner
 from malio_tpu_torch import smoother as tsm, state as tst
+from malio_tpu_torch import debug_pipeline, play, run_batched, run_synthetic, soak as tsoak
 from malio_tpu_torch.filter import dynamics as tdyn
 from malio_tpu_torch.map import voxel_hash as tvh
 from malio_tpu_torch.config import Config as TConfig
@@ -142,6 +143,11 @@ def _load_map(**kw):
         return tckpt.load(path, interop.map_from_numpy(_MAP, **kw))
 
 
+def _cli(main, *argv):
+    """A command-line entry point called as fn(device=...): --cpu for the CPU."""
+    return lambda device="cuda": main([*argv, *(["--cpu"] if device == "cpu" else [])])
+
+
 # entry points and public constructors, each called as fn(**kw) with the
 # device left at its default, and a tensor (or the device) of what it
 # returns; None where running it on the CPU is a test of its own
@@ -167,6 +173,12 @@ _ON_THE_CARD = {
     "batched.flagship_benchmark": (lambda **kw: tbatched.flagship_benchmark(batch=1, **kw), None),
     "batched.synthetic_batched_benchmark": (
         lambda **kw: tbatched.synthetic_batched_benchmark(batch=1, **kw), None),
+    "soak.run": (lambda **kw: tsoak.run(None, [], **kw), None),
+    "soak": (_cli(tsoak.main, "--duration", "1"), None),
+    "run_synthetic": (_cli(run_synthetic.main, "--duration", "1"), None),
+    "run_batched": (_cli(run_batched.main, "--batch", "1"), None),
+    "play": (_cli(play.main, "no_such_tree"), None),
+    "debug_pipeline": (_cli(debug_pipeline.main), None),
 }
 
 
