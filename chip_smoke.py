@@ -1,9 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of malio_tpu_torch on one NVIDIA card.
 
-Builds the CUDA kernels from malio_tpu_torch/csrc/, drives the City 3-LiDAR
-flagship through runner.run_sequence with both kernels on (launch counters
-set to 0 just before and read just after), checks the trajectory against
+Builds the CUDA kernels from malio_tpu_torch/csrc/, captures the compiled
+round (pipeline.step on the card: one CUDA graph of the fusion round, the
+port's jax.jit) at the flagship's shape over its first rounds (capture
+and warm-up seconds, graph nodes, pool bytes, each kernel's launches a
+replay), drives the City 3-LiDAR flagship through runner.run_sequence
+with all three kernels in that graph (launch counters set to 0 just
+before and read just after; a replay counts the launches its capture
+recorded), runs it again through the eager round (pipeline.step_eager,
+op by op) and holds the two bit-equal, runs a steady round and a
+scan_steps chunk under torch.cuda.set_sync_debug_mode("error") (no host
+sync), checks the trajectory against
 the synthetic ground truth, then holds each kernel against its plain
 PyTorch version on the card at the main path's shapes: the fused k-NN
 window kernel on the map that run built and on one of its rounds' queries
@@ -19,7 +27,7 @@ events of torch.profiler, median of >= 30 launches) and per wrapper call
 (CUDA events around 100 back-to-back calls). It times the whole k-NN stage
 (`voxel_hash.knn_cached`), re-runs the first rounds with the plain
 versions, and traces a few steady rounds with torch.profiler to show where
-a round's time goes.
+a round's time goes, through the graph and through the eager round.
 
 Then the slice's other paths, each with the launch counts set to 0 just
 before it and read just after (a path that launches a kernel no time
@@ -27,7 +35,7 @@ fails): run_sequence with no hooks over two full chunks through
 pipeline.scan_steps (bit-equal to the main path's first 32 rounds); the
 live path, the same sequence pushed through OnlineEstimator in arrival
 order (trajectory bit-equal to the main path's; push-to-pose latency and
-poll() time); a checkpoint after round 20 saved, loaded into a fresh
+poll() time), through the graph and through the eager round; a checkpoint after round 20 saved, loaded into a fresh
 template and resumed for rounds 21-30 (bit-equal); the back end with
 loop-closure feedback at full sensor width, a 20 s revisiting circle
 through run_sequence with a WindowSmoother and a PoseGraphBackend
@@ -39,7 +47,9 @@ kernel bit-equal to its plain route, with the kernel's K = 5 shapes
 checked and timed. Last the batched cell: batched.flagship_benchmark at
 B = 16 (6 s, seeds 0-15) and at B = 1 (8 s), aggregate scans/s per pass,
 every sequence's ATE and drops, three sequences against their own runs
-(1e-3 m), a profile of 5 steady batched rounds at B = 16 (its launches
+(1e-3 m), a pass through the eager round at B = 16 (bit-equal to the
+graph's, scans/s beside it), the B = 16 graph's capture, nodes and pool,
+a profile of 5 steady batched rounds at B = 16 (its device operations
 against the main path's profile, the same round at B = 1), and both
 kernels checked and timed at the batched shapes (the k-NN over 16
 maps as one flat table, the deskew at 16 x 3 x 4096). The map insert's
@@ -77,6 +87,12 @@ exits non-zero; the last line is the device summary.
     python3 chip_smoke.py --merge-kernel TREE           # time the merge kernel of
                                                         # the package in TREE beside
                                                         # this one's
+    python3 chip_smoke.py --eigvalsh                    # the main path's ATE with
+                                                        # torch.linalg.eigvalsh in
+                                                        # place of linalg.eigvalsh3
+    python3 chip_smoke.py --dist-mp TREE                # the mp = 2 world of the
+                                                        # package in TREE beside this
+                                                        # one's: round times by rank
     python3 chip_smoke.py --trace-check SECONDS [--lead-in S]  # count profiler
                                                         # traces that lose device events
     python3 chip_smoke.py --batch-bits                  # the first operation whose
@@ -112,6 +128,7 @@ DESKEW_OPS_OUTSIDE = 10
 # f32 operations per live lane of csrc/knn_window.cu: 3 sub, 3 mul, 2 add
 KNN_OPS_PER_LANE = 8
 SCAN_ROUNDS = 32  # two full chunks of run_sequence's 16 through pipeline.scan_steps
+GRAPH_GROUPS = 12  # the graph phase's groups: the IMU initialisation's and a few rounds
 RESUME_AT, RESUME_TO = 20, 30  # checkpoint after round 20, resume rounds 21-30
 # the back-end cell: the flagship on a revisiting circle (radius 4 m, closes
 # after ~13.6 s); PoseGraphBackend at its default widths but capacity 64
@@ -179,6 +196,7 @@ DIST_DEADLINE_S = 300  # a world past it fails the phase; a collective waits as 
 # stream): City01's length is 1309 s; the smoke run soaks 20 s of it (192
 # rounds), a depth cut (PERF.md §4: 30 s took the run past 750 s)
 SOAK_SECONDS = 20.0
+SOAK_CAPTURE_GROUPS = 40  # a short soak run first captures the soak's round
 SOAK_POINTS = 1024
 SOAK_CHUNK = 8
 MAP_DROP_SHARE = 0.002
@@ -817,6 +835,76 @@ def merge_kernel_main(tree):
     return 0
 
 
+def dist_mp_main(tree):
+    """The distributed cell's mp = 2 world (flagship seed 0, DIST_ROUNDS
+    rounds, two processes sharing the card over gloo) through the
+    sharding worker of the package in `tree` (for example the parent,
+    unpacked by `git archive` into _local/parent) beside this checkout's,
+    on the same inputs, in turns (tree, this, this, tree): every rank's
+    median round time (host clock, synchronised) and collectives a
+    round."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from malio_tpu_torch.config import flagship_config
+    from malio_tpu_torch.distributed import sharding
+
+    other = _tree_module(tree, "distributed.sharding")
+    smi = gpu_name_and_limit()
+    cfg = flagship_config()
+    groups, _ = flagship_groups(cfg, 8.0, seed=0)
+    d = ROOT / "chiprun_out" / "dist_mp_ab"
+    d.mkdir(parents=True, exist_ok=True)
+    dist_inputs(cfg, d / "mp.npz", [groups])
+    out = dict(tree=str(tree), package=str(pathlib.Path(other.__file__).resolve().parents[2]),
+               gpu=smi, tree_round_ms=[], this_round_ms=[])
+    for who, mod in (("tree", other), ("this", sharding), ("this", sharding), ("tree", other)):
+        stats = mod.run_local(d / "mp.npz", d / f"{who}_out.npz", DIST_MP, DIST_MP,
+                              deadline_s=DIST_DEADLINE_S)
+        ms = [statistics.median(st["round_ms"][1:]) for st in stats]
+        out[f"{who}_round_ms"].append(ms)
+        log(f"dist mp={DIST_MP} through {who}: round {ms} ms median by rank, collectives a round "
+            f"{statistics.median(stats[0]['collectives_per_round'])}; {smi}")
+    for f in d.glob("*.npz"):
+        f.unlink()
+    print(json.dumps(out))
+    return 0
+
+
+def eigvalsh_main():
+    """The main path (flagship, seed 0, 8 s) through the eager round twice:
+    with the localization weight's eigen-solve as the round has it
+    (`linalg.eigvalsh3`, the closed form a graph can capture) and with
+    `torch.linalg.eigvalsh` (cuSOLVER, which reads its status on the host)
+    in its place; the ATE of each, unrounded."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from malio_tpu_torch import measurement, runner
+    from malio_tpu_torch.config import flagship_config
+    from malio_tpu_torch.eval.ate import ate_rmse
+
+    cfg = flagship_config()
+    groups, traj = flagship_groups(cfg, 8.0, seed=0)
+    out = dict(gpu=gpu_name_and_limit())
+    closed_form = measurement.eigvalsh3
+    try:
+        for name, fn in (("eigvalsh3", closed_form), ("torch.linalg.eigvalsh", torch.linalg.eigvalsh)):
+            measurement.eigvalsh3 = fn
+            with _Eager():
+                r = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda")
+            out[name] = ate_rmse(r["pos"], traj.pos(r["t"]))
+            log(f"main path, eager, eigen-solve {name}: ATE {out[name]!r} m")
+    finally:
+        measurement.eigvalsh3 = closed_form
+    print(json.dumps(out))
+    return 0
+
+
 def trace_check_main(seconds, lead_in_s):
     """How often a profiler trace of device_events loses device events:
     the kernel phase's timings (launch floor, fused kernel, plain version,
@@ -952,19 +1040,26 @@ def profile_phase(drive, round_ms, skip=8, active=5, label="profile"):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / active
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    # the session's launches but the markers', over its active + 1 rounds
-    launches = (sum(1 for e in events if e.name == "cudaLaunchKernel") - len(marks)) / (active + 1)
+    # the session's launches but the markers', over its active + 1 rounds:
+    # kernels, graphs (a compiled round is one) and copies
+    def per_round(api):
+        return sum(1 for e in events if e.name == api) / (active + 1)
+
+    launches = per_round("cudaLaunchKernel") - len(marks) / (active + 1)
     knn_ms = sum(ms for name, ms in by_name.items() if "knn_window_" in name)
     desk_ms = sum(ms for name, ms in by_name.items() if "deskew_kernel" in name)
     out = dict(rounds=active, round_ms=round_ms, traced_round_ms=traced_ms,
                device_busy_ms_per_round=busy_ms, device_idle_share=1.0 - busy_ms / round_ms,
-               launches_per_round=launches, device_ops_per_round=len(dev) / active,
+               launches_per_round=launches, graph_launches_per_round=per_round("cudaGraphLaunch"),
+               copies_per_round=per_round("cudaMemcpyAsync"), device_ops_per_round=len(dev) / active,
                knn_window_ms_per_round=knn_ms, deskew_ms_per_round=desk_ms,
                retakes=attempt - 1, top_device_ms_per_round=top)
     log(f"{label}, {active} steady rounds (trace {attempt}, all {len(marks)} markers): device "
         f"busy {busy_ms:.2f} ms/round of a {round_ms:.1f} ms round (idle share "
         f"{out['device_idle_share']:.3f}; {traced_ms:.1f} ms/round while traced), {launches:.0f} "
-        f"kernel launches/round; fused k-NN kernel {knn_ms:.4f} ms/round, deskew "
+        f"kernel launches, {out['graph_launches_per_round']:.0f} graph launches, "
+        f"{out['copies_per_round']:.0f} copies and {out['device_ops_per_round']:.0f} device "
+        f"operations a round; fused k-NN kernel {knn_ms:.4f} ms/round, deskew "
         f"{desk_ms:.4f} ms/round")
     for name, ms in top:
         log(f"  {ms:8.3f} ms/round  {name[:100]}")
@@ -1034,6 +1129,101 @@ def _same(name, got, want):
         d = np.abs(got - want).max() if got.shape == want.shape else "shape"
         raise AssertionError(f"{name}: not bit-equal (shapes {got.shape} / {want.shape}, max "
                              f"|difference| {d})")
+
+
+class _Eager:
+    """Inside it `pipeline.step` and `pipeline.scan_steps` run the eager
+    round (`pipeline.step_eager`, op by op, as on the CPU) wherever the
+    runner, the live path, batched replay and the soak call them: the
+    eager round beside the compiled one, and the runs whose swapped
+    functions (a plain merge, a log of every operation) must act at every
+    round, not only at a capture."""
+
+    def __enter__(self):
+        from malio_tpu_torch import pipeline, tree
+
+        self._fns = pipeline.step, pipeline.scan_steps
+
+        def scan_steps(cfg, carry, groups, device="cuda"):
+            outs = []
+            for k in range(groups.pts.shape[0]):
+                carry, out = pipeline.step_eager(cfg, carry, tree.index(groups, k), device=device)
+                outs.append(out)
+            return carry, tree.stack(outs)
+
+        pipeline.step, pipeline.scan_steps = pipeline.step_eager, scan_steps
+        return self
+
+    def __exit__(self, *exc):
+        from malio_tpu_torch import pipeline
+
+        pipeline.step, pipeline.scan_steps = self._fns
+
+
+def compiled_report(cr):
+    """A compiled round's capture: warm-up and capture (with instantiation)
+    host seconds, graph nodes, the pool it reserved and each kernel's
+    launches a replay by shape."""
+    return dict(warmup_s=cr.warmup_s, capture_s=cr.capture_s, nodes=cr.nodes,
+                pool_bytes=cr.pool_bytes, replays=cr.replays,
+                launches_per_round={k: {",".join(map(str, sh)): n for sh, n in v.items()}
+                                    for k, v in cr.launches.items()})
+
+
+def graph_phase(cfg, groups, v_base, v_wide, smi, dev="cuda"):
+    """The compiled round at the flagship's shape: run_sequence over the
+    first GRAPH_GROUPS groups captures it at its first round (a warm-up
+    round on a side stream, then the capture) and replays it for the
+    rest. Fails unless exactly one round was captured and it launches the
+    k-NN at the base window and at the wide budget, the deskew and the
+    merge once each. Returns (report, the groups the IMU initialisation
+    took, the rounds run)."""
+    import torch
+    from malio_tpu_torch import pipeline, runner
+
+    before = len(pipeline.compiled_rounds())
+    r = runner.run_sequence(cfg, groups[:GRAPH_GROUPS], dtype=torch.float32, device=dev)
+    new = pipeline.compiled_rounds()[before:]
+    if len(new) != 1:
+        raise AssertionError(f"graph: {len(new)} rounds captured at the flagship's shape, not 1")
+    cr = new[0]
+    per = cr.launches
+    knn_v = collections.Counter()
+    for (q, v, k), n in per.get("knn_window", {}).items():
+        knn_v[v] += n
+    if (knn_v[v_base] != 1 or knn_v[v_wide] != 1 or sum(per.get("deskew", {}).values()) != 1
+            or sum(per.get("merge_rows", {}).values()) != 1):
+        raise AssertionError(f"graph: the captured round does not launch each kernel once: {per}")
+    out = compiled_report(cr)
+    log(f"graph: the round captured at B = 1 in {cr.capture_s:.3f} s (warm-up round "
+        f"{cr.warmup_s:.3f} s), {cr.nodes} graph nodes, pool {cr.pool_bytes} B; launches a replay "
+        f"{per}; {smi}")
+    return out, GRAPH_GROUPS - len(r["t"]), r
+
+
+def sync_check(cfg, carry, groups, n_init, at, dev="cuda"):
+    """A steady compiled round (`pipeline.step` on `carry`, the carry after
+    round `at`) and a scan_steps chunk of two rounds under
+    torch.cuda.set_sync_debug_mode("error"): any host sync inside raises.
+    The groups go to the card before."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import pipeline, runner, tree
+
+    gdev, _ = runner._stack_chunk(groups[n_init + at : n_init + at + 2], np.float32,
+                                  runner.group_base(groups[n_init + at - 1]), dev)
+    g0 = tree.index(gdev, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipeline.step(cfg, carry, g0, device=dev)
+        pipeline.scan_steps(cfg, carry, gdev, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("graph: a steady round and a scan_steps chunk of two made no host sync "
+        "(set_sync_debug_mode('error'))")
+    return dict(step=True, scan_steps_rounds=2)
 
 
 def scan_steps_phase(cfg, groups, n_init, res, dev="cuda"):
@@ -1326,34 +1516,102 @@ def batched_drive(cfg, seqs, record=None):
 
 
 def batched_phase(floor, smi, main_profile):
-    """The batched cell: batched.flagship_benchmark at B = BATCH (6 s) and
-    at B = 1 (8 s, bench.py's settings), each with the launch counts set
-    to 0 just before and read just after; ATE, drops and throughput per
-    pass; three sequences of the batch against their own runs; a profile
-    of 5 steady batched rounds at B = BATCH (launches, device busy time
-    and idle share, kernel time per round, IEKF iterations), its launches
-    set against `main_profile`'s, the same round at B = 1; and both
-    kernels checked and timed at the batched shapes. Returns (report,
-    launch counts by path, kernel rows)."""
-    import numpy as np
-    import torch
+    """The batched cell through the compiled round: batched.flagship_benchmark
+    at B = BATCH (6 s) and at B = 1 (8 s, bench.py's settings), each with
+    the launch counts set to 0 just before and read just after; ATE,
+    drops and throughput per pass; the graph's capture at each B; three
+    sequences of the batch against their own runs; a profile of 5 steady
+    batched rounds at B = BATCH (device operations, busy time and idle
+    share, kernel time per round, IEKF iterations), its device operations
+    set against `main_profile`'s; one pass at B = BATCH through the eager
+    round (bit-equal, scans/s beside the graph's); and the kernels checked
+    and timed at the batched shapes. Returns (report, launch counts by
+    path, kernel rows)."""
     from malio_tpu_torch import batched
     from malio_tpu_torch import measurement as meas
-    from malio_tpu_torch.io.assemble import assemble_groups
     from malio_tpu_torch.map import voxel_hash as vh
     from malio_tpu_torch.ops import merge
 
     cfg = batched._flagship_config(4096, 1 << 21, False)
     kw = dict(points_per_lidar=4096, passes=BATCH_PASSES, chunk=BATCH_CHUNK)
+    # each batch's sequences built once: the eager pass replays the stream
+    # of the graph's passes
+    build, built = batched._build_sequences, {}
+
+    def build_once(cfg_, B, secs, points, world):
+        if (B, secs, points) not in built:
+            built[B, secs, points] = build(cfg_, B, secs, points, world)
+        return built[B, secs, points]
+
+    # the last batched round's k-NN queries and insert arguments: the
+    # recordings are on when the B = BATCH round is captured
+    last = {}
+    knn_cached = vh.knn_cached
+
+    def recording_knn_cached(m, queries, **kw2):
+        last.update(queries=queries, qmask=kw2.get("qmask"))
+        return knn_cached(m, queries, **kw2)
+
+    batched._build_sequences, vh.knn_cached = build_once, recording_knn_cached
+    ins16 = _Recording(merge, "merge_rows").__enter__()
+    try:
+        out, paths, sinks, rec16 = _batched_runs(cfg, kw, smi, main_profile)
+        last = {k: v.clone() for k, v in last.items()}
+        ins16_args = tuple(a.clone() for a in ins16.args)
+    finally:
+        ins16.__exit__()
+        vh.knn_cached = knn_cached
+    try:
+        sink_e = {}
+        t0 = time.perf_counter()
+        with _Eager():
+            r_e = batched.flagship_benchmark(batch=BATCH, duration=BATCH_SECONDS, sink=sink_e,
+                                             **dict(kw, passes=1))
+        wall_e = _ms_since(t0) / 1e3
+    finally:
+        batched._build_sequences = build
+    _same("batched eager pass, positions", sink_e["pos"], sinks["batched"]["pos"])
+    out["batched_eager"] = dict(values=r_e["values"], median=r_e["median"], wall_s=wall_e)
+    log(f"batched eager pass: B={BATCH}, aggregate {r_e['median']:.2f} scans/s against "
+        f"{out['batched']['median']:.2f} median through the graph; positions bit-equal; {smi}")
+
+    # both kernels at the batched shapes: the k-NN on the batch's maps and
+    # last-round queries, the deskew on seeded batched inputs
+    m = rec16["carry"].map
+    rows = knn_phase(m, last["queries"], last["qmask"], cfg, meas.CAND_K, suffix="_batched")
+    rows.append(deskew_phase("deskew_batched", deskew_inputs_batch(
+        BATCH, cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity, seed=1), floor))
+    rows.append(merge_phase("merge_rows_batched", *ins16_args, floor))
+    del ins16_args
+    for r in rows:
+        r["path"] = "batched"
+    return out, paths, rows
+
+
+def _batched_runs(cfg, kw, smi, main_profile):
+    """batched_phase's runs through the compiled round: the benchmark at
+    B = 1 and B = BATCH, the sequences against their own runs, the
+    profile. Returns (report, launches by path, sinks, the profile's last
+    carry and iterations)."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import batched, pipeline
+    from malio_tpu_torch import measurement as meas
+    from malio_tpu_torch.io.assemble import assemble_groups
+    from malio_tpu_torch.map import voxel_hash as vh
+
     out, paths, sinks = {}, {}, {}
     for label, B, secs in (("batched_b1", 1, BATCH_B1_SECONDS), ("batched", BATCH, BATCH_SECONDS)):
         sinks[label] = {}
+        captured = len(pipeline.compiled_rounds())
         reset_launches()
         t0 = time.perf_counter()
         r = batched.flagship_benchmark(batch=B, duration=secs, sink=sinks[label], **kw)
         _sync()
         paths[label] = read_launches(label)
         r["wall_s"] = time.perf_counter() - t0
+        new = pipeline.compiled_rounds()[captured:]
+        r["graph"] = compiled_report(new[-1]) if new else "the main path's"
         out[label] = r
         st = r["stats"]
         log(f"{label}: B={B}, {r['rounds']} rounds x {len(r['values'])} timed passes in "
@@ -1409,45 +1667,21 @@ def batched_phase(floor, smi, main_profile):
     # where a steady batched round's time goes
     seqs = batched._build_sequences(cfg, BATCH, BATCH_PROFILE_SECONDS, 4096,
                                     batched._flagship_world(cfg))
-    last = {}
-    knn_cached = vh.knn_cached
-
-    def recording_knn_cached(m, queries, **kw2):
-        last.update(queries=queries, qmask=kw2.get("qmask"))
-        return knn_cached(m, queries, **kw2)
-
     rec16 = {}
-    vh.knn_cached = recording_knn_cached
-    try:
-        with _Recording(merge, "merge_rows") as ins16:
-            prof16 = profile_phase(batched_drive(cfg, seqs, rec16),
-                                   1e3 * BATCH / out["batched"]["median"],
-                                   label=f"batched profile B={BATCH}")
-    finally:
-        vh.knn_cached = knn_cached
+    prof16 = profile_phase(batched_drive(cfg, seqs, rec16), 1e3 * BATCH / out["batched"]["median"],
+                           label=f"batched profile B={BATCH}")
     # each sequence of the batch runs its own iteration count; the loop runs
-    # the batch's largest
+    # all max_iter + 1 with the done ones frozen
     it16 = rec16["iterations"][8:13]
-    ratio = prof16["launches_per_round"] / main_profile["launches_per_round"]
-    out["profile"] = {f"B={BATCH}": prof16, "launch_ratio_to_main_path": ratio,
+    ratio = prof16["device_ops_per_round"] / main_profile["device_ops_per_round"]
+    out["profile"] = {f"B={BATCH}": prof16, "device_ops_ratio_to_main_path": ratio,
                       "iekf_iterations_max": it16.max(1).tolist(),
                       "iekf_iterations_mean": it16.mean(1).tolist()}
-    log(f"batched profile: {prof16['launches_per_round']:.0f} launches per round at B={BATCH} "
-        f"against {main_profile['launches_per_round']:.0f} on the main path (B=1, {ratio:.3f}x); "
-        f"IEKF iterations per traced round, batch maximum {it16.max(1).tolist()}, mean "
-        f"{[round(float(v), 2) for v in it16.mean(1)]}; {smi}")
-
-    # both kernels at the batched shapes: the k-NN on the batch's maps and
-    # last-round queries, the deskew on seeded batched inputs
-    m = rec16["carry"].map
-    rows = knn_phase(m, last["queries"], last["qmask"], cfg, meas.CAND_K, suffix="_batched")
-    rows.append(deskew_phase("deskew_batched", deskew_inputs_batch(
-        BATCH, cfg.num_lidars, cfg.max_raw_points, cfg.spline_capacity, seed=1), floor))
-    rows.append(merge_phase("merge_rows_batched", *ins16.args, floor))
-    del ins16.args
-    for r in rows:
-        r["path"] = "batched"
-    return out, paths, rows
+    log(f"batched profile: {prof16['device_ops_per_round']:.0f} device operations a round at "
+        f"B={BATCH} against {main_profile['device_ops_per_round']:.0f} on the main path (B=1, "
+        f"{ratio:.3f}x); IEKF iterations per traced round, batch maximum "
+        f"{it16.max(1).tolist()}, mean {[round(float(v), 2) for v in it16.mean(1)]}; {smi}")
+    return out, paths, sinks, rec16
 
 
 def knn_function_check(m, queries, qmask, cfg):
@@ -1715,7 +1949,10 @@ class _PathRecording:
     """Inside it, the last call's arguments of the three kernels' callers on
     a path of one sequence: `search` (the k-NN queries and their mask),
     `deskew["args"]` (deskew_points' arguments) and `merge.args` (the
-    insert's merge_rows arguments)."""
+    insert's merge_rows arguments). Through the compiled round the last
+    call is the capture: the tensors kept are the graph's own, which every
+    replay rewrites, so after a run they hold its last round's arguments
+    (`snapshot` copies them); the capture must happen inside it."""
 
     def __enter__(self):
         import types
@@ -1740,6 +1977,15 @@ class _PathRecording:
                                                 deskew_points_plain=deskew.deskew_points_plain)
         self.merge = _Recording(merge, "merge_rows").__enter__()
         return self
+
+    def snapshot(self):
+        """Copies of (search, deskew, merge arguments) as they are now."""
+        import torch
+        from malio_tpu_torch import tree
+
+        copy = lambda t: tree.map_tensors(torch.clone, t)  # noqa: E731
+        return ({k: v.clone() for k, v in self.search.items()},
+                {"args": copy(self.deskew["args"])}, copy(self.merge.args))
 
     def __exit__(self, *exc):
         from malio_tpu_torch import propagate as prop
@@ -1785,8 +2031,9 @@ def merge_kernel_phase(path_args, floor):
 
 def insert_plain_check(cfg, groups, n_init, res):
     """The main path's first PLAIN_ROUNDS rounds with both other kernels
-    on but the insert's write through merge_rows_plain: positions, times
-    and map sizes bit-equal to the kernel run's (the write is a copy)."""
+    on but the insert's write through merge_rows_plain (the eager round, so
+    that the swap acts): positions, times and map sizes bit-equal to the
+    kernel run's (the write is a copy)."""
     import torch
     from malio_tpu_torch import runner
     from malio_tpu_torch.ops import merge
@@ -1794,8 +2041,9 @@ def insert_plain_check(cfg, groups, n_init, res):
     kernel = merge.merge_rows
     merge.merge_rows = merge.merge_rows_plain
     try:
-        r = runner.run_sequence(cfg, groups[: n_init + PLAIN_ROUNDS], dtype=torch.float32,
-                                device="cuda")
+        with _Eager():
+            r = runner.run_sequence(cfg, groups[: n_init + PLAIN_ROUNDS], dtype=torch.float32,
+                                    device="cuda")
     finally:
         merge.merge_rows = kernel
     k = len(r["t"])
@@ -2242,8 +2490,8 @@ def batch_bits_main(rounds=BITS_ROUNDS, dev="cuda", B=BATCH, check=BATCH_CHECK, 
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
-    from malio_tpu_torch import batched, pipeline
-    from malio_tpu_torch.ops import _build, merge
+    from malio_tpu_torch import batched
+    from malio_tpu_torch.ops import _build
 
     smi = gpu_name_and_limit() if dev == "cuda" else "cpu"
     log(smi)
@@ -2253,6 +2501,22 @@ def batch_bits_main(rounds=BITS_ROUNDS, dev="cuda", B=BATCH, check=BATCH_CHECK, 
     seqs = batched._build_sequences(cfg, B, BATCH_PROFILE_SECONDS, points,
                                     batched._flagship_world(cfg))
     report = dict(gpu=smi, rounds=rounds, sequences=list(check))
+    with _Eager():  # every operation runs in Python to be logged
+        _batch_bits_rounds(cfg, seqs, rounds, dev, B, check, report)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "batch_bits.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({v: [{b: (q["differing"], q["carry_bit_equal"])
+                           for b, q in r["sequences"].items()} for r in report[v]]
+                      for v in ("as_is", "per_sequence_products")}))
+    return 0
+
+
+def _batch_bits_rounds(cfg, seqs, rounds, dev, B, check, report):
+    """batch_bits_main's rounds, both variants, into `report`."""
+    import torch
+    from malio_tpu_torch import batched, pipeline
+    from malio_tpu_torch.ops import merge
+
     for variant, split in (("as_is", None), ("per_sequence_products", B)):
         c16, ch16, _ = batched._prepare(cfg, seqs, torch.float32, 1, dev)
         singles = {b: batched._prepare(cfg, [seqs[b]], torch.float32, 1, dev)[:2] for b in check}
@@ -2310,12 +2574,6 @@ def batch_bits_main(rounds=BITS_ROUNDS, dev="cuda", B=BATCH, check=BATCH_CHECK, 
             log(f"batch_bits {variant} round {k}: {ol16.split} products split per sequence")
             del logs1, ol, ol16
         report[variant] = out_rounds
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "batch_bits.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({v: [{b: (q["differing"], q["carry_bit_equal"])
-                           for b, q in r["sequences"].items()} for r in report[v]]
-                      for v in ("as_is", "per_sequence_products")}))
-    return 0
 
 
 def _clone(tree):
@@ -2327,7 +2585,8 @@ def _clone(tree):
 
 def soak_phase(floor, dev="cuda"):
     """The soak cell: soak.run (scan_steps in chunks of SOAK_CHUNK, each
-    fenced by a host copy) over SOAK_SECONDS of the soak's stream at its
+    fenced by a host copy; the compiled round captured by a short run
+    before) over SOAK_SECONDS of the soak's stream at its
     full width (3 x 1024 raw points, 3072 measurement lanes uncapped, 2^19
     map slots, f32 points, f64 P), the launch counts set to 0 just before
     and read just after. Fails unless the trajectory and P are finite, the
@@ -2344,12 +2603,20 @@ def soak_phase(floor, dev="cuda"):
     from malio_tpu_torch import soak
     from malio_tpu_torch.map import voxel_hash as vh
 
+    from malio_tpu_torch import pipeline
+
     t0 = time.perf_counter()
     cfg, groups, traj = soak.soak_sequence(SOAK_SECONDS, SOAK_POINTS, seed=0)
     gen_s = time.perf_counter() - t0
-    reset_launches()
     with _PathRecording() as rec:
+        # a short run first captures the soak's round (its warm-up round
+        # launches every kernel once more than the rounds it runs)
+        captured = len(pipeline.compiled_rounds())
+        soak.run(cfg, groups[:SOAK_CAPTURE_GROUPS], torch.float32, dev, SOAK_CHUNK)
+        graph = [compiled_report(c) for c in pipeline.compiled_rounds()[captured:]]
+        reset_launches()
         res = soak.run(cfg, groups, torch.float32, dev, SOAK_CHUNK)
+        search, deskew_rec, merge_args = rec.snapshot()
     counts = read_launches("soak")
     out = soak.summary(res, traj)
     v_base = len(vh._svx_ball_offsets(cfg.knn_radius))
@@ -2389,13 +2656,13 @@ def soak_phase(floor, dev="cuda"):
         log(f"soak: launches a round, {name} quartile: {json.dumps(q)}")
     m = res["carry"].map
     K = meas.CAND_K
-    rows = [knn_row("knn_window_soak", window_args(m, rec.search["queries"],
-                                                   cfg.knn_radius, rec.search["qmask"]), K),
-            deskew_phase("deskew_soak", rec.deskew["args"], floor),
-            merge_phase("merge_rows_soak", *rec.merge.args, floor)]
+    rows = [knn_row("knn_window_soak", window_args(m, search["queries"], cfg.knn_radius,
+                                                   search["qmask"]), K),
+            deskew_phase("deskew_soak", deskew_rec["args"], floor),
+            merge_phase("merge_rows_soak", *merge_args, floor)]
     for r in rows:
         r["path"] = "soak"
-    report = dict(out, seconds=SOAK_SECONDS, stream_s=gen_s, memory=res["memory"],
+    report = dict(out, seconds=SOAK_SECONDS, stream_s=gen_s, memory=res["memory"], graph=graph,
                   insert_candidates=offered,
                   launches_per_round=quartiles,
                   chunk_s=res["chunk_s"].tolist(), p_tr=res["p_tr"].tolist())
@@ -2470,15 +2737,18 @@ def main(save_stage_inputs=None):
         if len(stamps) == RESUME_AT:  # the carry after round RESUME_AT, for the resume phase
             saved["carry"] = _clone(carry)
 
-    reset_launches()
-    t0 = time.perf_counter()
-    # keep the last round's kernel arguments for the kernel and stage phases
+    # keep the last round's kernel arguments for the kernel and stage
+    # phases: the recording holds the graph's tensors from the capture on
     with _PathRecording() as rec:
+        report["graph"], n_init, r_graph = graph_phase(cfg, groups, v_base, v_wide, smi)
+        done("graph")
+        reset_launches()
+        t0 = time.perf_counter()
         res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda",
                                   callback=tick)
         torch.cuda.synchronize()
-    last_search, last_deskew, main_merge = rec.search, rec.deskew, rec.merge
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        last_search, last_deskew, main_merge_args = rec.snapshot()
     paths = {"main": read_launches("main")}
     by_shape = paths["main"]["knn_window"]
     n_base = sum(n for (q, v, k), n in by_shape.items() if v == v_base)
@@ -2486,9 +2756,11 @@ def main(save_stage_inputs=None):
     n_desk = deskew.deskew_points.launches
     desk_by_shape = paths["main"]["deskew"]
     rounds = len(res["t"])
-    if n_base == 0 or n_wide == 0 or n_desk == 0 or merge.merge_rows.launches != rounds:
-        raise AssertionError(f"main path skipped a kernel: knn_window {by_shape}, deskew {n_desk}, "
-                             f"merge_rows {paths['main']['merge_rows']} in {rounds} rounds")
+    # the replays of the round captured in the graph phase: each kernel once a round
+    if not n_base == n_wide == n_desk == merge.merge_rows.launches == rounds:
+        raise AssertionError(f"main path: not every kernel once a round: knn_window {by_shape}, "
+                             f"deskew {n_desk}, merge_rows {paths['main']['merge_rows']} in "
+                             f"{rounds} rounds")
     warm = 8
     steady = (rounds - warm) / (stamps[-1] - stamps[warm - 1])
     ate = ate_rmse(res["pos"], traj.pos(res["t"]))
@@ -2504,6 +2776,30 @@ def main(save_stage_inputs=None):
         raise AssertionError(f"ATE {ate} is not finite or exceeds {ATE_GATE_M} m")
     if not np.all(np.isfinite(res["pos"])) or res["pos"].shape != (rounds, 3):
         raise AssertionError("trajectory has non-finite values or a wrong shape")
+    if n_init != len(groups) - rounds:
+        raise AssertionError(f"graph phase: {n_init} initialisation groups, main path "
+                             f"{len(groups) - rounds}")
+    for f in ("t", "pos", "quat", "map_size"):
+        _same(f"graph phase {f}", r_graph[f], res[f][: len(r_graph["t"])])
+    report["graph"]["sync"] = sync_check(cfg, saved["carry"], groups, n_init, RESUME_AT)
+
+    # ---- the same path through the eager round, held bit-equal ----
+    main_stamps = list(stamps)
+    stamps.clear()
+    t0 = time.perf_counter()
+    with _Eager():
+        res_e = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda",
+                                    callback=tick)
+    wall_e = _ms_since(t0) / 1e3
+    steady_e = (rounds - warm) / (stamps[-1] - stamps[warm - 1])
+    for f in ("t", "pos", "quat", "pose_cov", "map_size", "iterations", "n_effective",
+              "nn_miss", "map_dropped"):
+        _same(f"eager main path {f}", res_e[f], res[f])
+    stamps[:] = main_stamps
+    report["eager"] = dict(wall_s=wall_e, steady_scans_per_s=steady_e)
+    log(f"eager round: {rounds} rounds in {wall_e:.2f} s, steady {steady_e:.2f} scans/s against "
+        f"{steady:.2f} through the graph; every output bit-equal; {smi}")
+    del res_e
 
     done("main path")
     # ---- kernels against their plain versions, timed, at the path's shapes ----
@@ -2523,7 +2819,7 @@ def main(save_stage_inputs=None):
     knn_rows += knn_phase(m, queries, qmask, cfg, vh.NUM_MATCH_POINTS, suffix="_k5")
     # the three kernels at the shapes mp rank 0 of the distributed path gives them
     mp_knn, mp_desk, mp_merge = dist_mp_kernel_inputs(m, queries, qmask, cfg,
-                                                      last_deskew["args"], main_merge.args)
+                                                      last_deskew["args"], main_merge_args)
     dist_rows = [knn_row("knn_window_dist_mp", mp_knn, K),
                  deskew_phase("deskew_dist_mp", mp_desk, floor)]
     del mp_knn, mp_desk
@@ -2545,12 +2841,12 @@ def main(save_stage_inputs=None):
     dq = torch.tensor([np.cos(0.05), 0.0, 0.0, np.sin(0.05)], dtype=torch.float32, device="cuda")
     with _Recording(merge, "merge_rows") as corr:
         vh.transform(m, dq, torch.tensor([0.3, -0.2, 0.05], device="cuda"))
-    merge_kernel_rows = merge_kernel_phase({"merge_rows_path": main_merge.args,
-                                     "merge_rows_transform": corr.args}, floor)
+    merge_kernel_rows = merge_kernel_phase({"merge_rows_path": main_merge_args,
+                                            "merge_rows_transform": corr.args}, floor)
     dist_rows.append(merge_phase("merge_rows_dist_mp", *mp_merge, floor))
     for r in dist_rows:
         r["path"] = "dist_mp"
-    del main_merge.args, corr.args, mp_merge
+    del main_merge_args, corr.args, mp_merge
 
     # ---- the whole k-NN stage, kernel and plain ----
     stage = {flag: stage_ms(vh, meas, m, queries, qmask, cfg, flag) for flag in (True, False)}
@@ -2559,16 +2855,17 @@ def main(save_stage_inputs=None):
         log(f"k-NN stage (knn_cached, Q={queries.shape[0]}, {'kernel' if flag else 'plain'}): "
             f"{st['stage_ms']:.4f} ms per call by events, device {st['stage_device_ms']:.4f} ms "
             f"in {st['stage_device_ops']:.0f} device ops")
-    # ---- the same rounds through the plain versions on the card ----
+    # ---- the same rounds through the plain versions on the card (eager:
+    # the swapped merge acts at every round) ----
     import dataclasses
 
     plain_cfg = dataclasses.replace(cfg, knn_kernel=False, deskew_kernel=False)
-    n_init = len(groups) - rounds  # groups consumed by the IMU initialisation
     merge_rows_kernel = merge.merge_rows
     merge.merge_rows = merge.merge_rows_plain
     try:
-        res_p = runner.run_sequence(plain_cfg, groups[: n_init + PLAIN_ROUNDS],
-                                    dtype=torch.float32, device="cuda")
+        with _Eager():
+            res_p = runner.run_sequence(plain_cfg, groups[: n_init + PLAIN_ROUNDS],
+                                        dtype=torch.float32, device="cuda")
     finally:
         merge.merge_rows = merge_rows_kernel
     report["insert_plain_rounds"] = insert_plain_check(cfg, groups, n_init, res)
@@ -2579,8 +2876,11 @@ def main(save_stage_inputs=None):
     if not dpos <= PLAIN_TOL_M:
         raise AssertionError(f"kernel and plain trajectories differ by {dpos} m")
 
-    # ---- where a steady round's time goes ----
+    # ---- where a steady round's time goes, through the graph and eager ----
     report["profile"] = profile_phase(run_rounds(cfg, groups, n_init), round_ms=1e3 / steady)
+    with _Eager():
+        report["profile_eager"] = profile_phase(run_rounds(cfg, groups, n_init),
+                                                round_ms=1e3 / steady_e, label="profile (eager)")
 
     done("kernel, stage, plain and profile phases")
 
@@ -2588,6 +2888,8 @@ def main(save_stage_inputs=None):
     report["scan_steps"], paths["scan_steps"] = scan_steps_phase(cfg, groups, n_init, res)
     done("scan_steps")
     report["online"], paths["online"] = online_phase(cfg, imu, rounds_raw, res, ate, traj)
+    with _Eager():
+        report["online_eager"], _ = online_phase(cfg, imu, rounds_raw, res, ate, traj)
     done("online")
     report["resume"], paths["resume"] = resume_phase(cfg, groups, n_init, saved["carry"], res,
                                                      out_dir)
@@ -2655,6 +2957,12 @@ if __name__ == "__main__":
                     help="only time the deskew kernel of the package in TREE (--inputs optional)")
     ap.add_argument("--merge-kernel", metavar="TREE",
                     help="only time the merge kernel of the package in TREE beside this one's")
+    ap.add_argument("--eigvalsh", action="store_true",
+                    help="only the main path's ATE through the eager round with the closed-form "
+                         "eigen-solve and with torch.linalg.eigvalsh")
+    ap.add_argument("--dist-mp", metavar="TREE",
+                    help="only time the distributed mp world of the package in TREE beside "
+                         "this one's")
     ap.add_argument("--inputs", metavar="FILE", help="inputs saved by --save-stage-inputs")
     ap.add_argument("--outputs", metavar="FILE",
                     help="with --deskew-kernel: keep the first tree's results in FILE, compare "
@@ -2675,6 +2983,10 @@ if __name__ == "__main__":
         sys.exit(deskew_kernel_main(a.deskew_kernel, a.inputs, a.outputs))
     if a.merge_kernel:
         sys.exit(merge_kernel_main(a.merge_kernel))
+    if a.dist_mp:
+        sys.exit(dist_mp_main(a.dist_mp))
+    if a.eigvalsh:
+        sys.exit(eigvalsh_main())
     if a.trace_check:
         sys.exit(trace_check_main(a.trace_check, a.lead_in))
     sys.exit(main(a.save_stage_inputs))

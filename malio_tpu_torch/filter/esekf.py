@@ -6,11 +6,13 @@ Information form on the active (pose + extrinsics) block, solved in f64:
   P_temp = J^-T P0^-1 J^-1;  P_temp[:a,:a] += H^T R^-1 H;  K = P_temp^-1 H^T R^-1
 Every quantity carries a leading batch axis B of independent sequences.
 The loop keeps i, t, converge, valid, done and ever_valid per sequence on
-the device, freezes a sequence once it is done and runs until all are:
-the reference's lax.while_loop under vmap. Each iteration reads two values on
-the host, whatever B is: whether any sequence needs the direct inverse
-(the Newton-Schulz verification gate), and whether all are done together
-with whether any re-searches next.
+the device, freezes a sequence once it is done and runs max_iter + 1
+iterations: the reference's lax.while_loop under vmap, with no host read.
+Each iteration re-searches where a sequence's `converge` asks for it and
+takes the direct inverse where the Newton-Schulz inverse fails its
+verification, both as per-sequence selects (the reference's lax.conds).
+Only an mp rank (`shard`) reads on the host, through `agree`: whether any
+sequence needs the direct inverse, and whether all are done.
 """
 from __future__ import annotations
 
@@ -152,11 +154,13 @@ def update_iterated(
     shard=None,
 ) -> IEKFResult:
     """Iterated update of B sequences; h_share_fn(x, search, cache) ->
-    (HShareResult, cache), with `search` False (no sequence re-searches)
-    or a (B,) bool tensor (see measurement.make_h_share). Pi0 warm-starts
-    the information-matrix inverse (Newton-Schulz, entry gate 0.95 per
-    sequence, verified to 1e-7, else the direct inverse). With `shard` (an
-    mp group; h_share_fn returns every rank's rows) the host reads take
+    (HShareResult, cache), with `search` False (no sequence re-searches:
+    `search_on_converge` off) or a (B,) bool tensor (see
+    measurement.make_h_share). Pi0 warm-starts the information-matrix
+    inverse (Newton-Schulz, entry gate 0.95 per sequence, verified to
+    1e-7, else the direct inverse). With `shard` (an mp group; h_share_fn
+    returns every rank's rows) the loop stops once every sequence is done
+    and skips the direct inverse that no sequence needs, each decided from
     every rank's value (`agree`), so all ranks run the same iterations."""
     L = x0.num_lidars
     n = st.dof(L)
@@ -179,9 +183,9 @@ def update_iterated(
     dx_out = torch.zeros((B, n), dtype=sdtype, device=dev)
     cache = cache0
     Pi_prev = torch.zeros((B, n, n), dtype=sdtype, device=dev) if Pi0 is None else Pi0.to(sdtype)
-    any_search = False  # the first iteration never re-searches (i == -1)
     for _ in range(max_iter + 1):  # i runs from -1 to max_iter - 1
-        search = (converge & (i > -1)) if any_search else False
+        # the first iteration never re-searches (i == -1)
+        search = converge & (i > -1) if search_on_converge else False
         res, cache_new = h_share_fn(x, search, cache)
 
         dx = st.boxminus(x, x0).to(sdtype)
@@ -207,13 +211,10 @@ def update_iterated(
             X = 0.5 * (X + X.transpose(-1, -2))
         X_w = torch.where((_sbound(E0) < 0.95)[:, None, None], X, Pi_prev)
         verified = _sbound(I_n - mm(P_temp, X_w)) < 1e-7
-        all_verified = verified.all()
-        if shard is not None:
-            all_verified = shard.agree(all_verified).all()
-        if not bool(all_verified):  # host read: some sequence needs the direct inverse
-            Pi = torch.where(verified[:, None, None], X_w, _spd_inverse(P_temp))
+        if shard is not None and bool(shard.agree(verified.all()).all()):
+            Pi = X_w  # host read (mp ranks only): no sequence needs the direct inverse
         else:
-            Pi = X_w
+            Pi = torch.where(verified[:, None, None], X_w, _spd_inverse(P_temp))
 
         Pia = Pi[..., :act]
         K_h = mm(Pia, mm(HTw, res.h.to(sdtype)[..., None]))
@@ -243,16 +244,8 @@ def update_iterated(
         converge = torch.where(run, conv_new, converge)
         i = torch.where(run, i + 1, i)
         done = done | (run & done_new)
-        # host read: whether all are done, and whether any re-searches next
-        nxt = converge & (i > -1) & ~done if search_on_converge else torch.zeros_like(done)
-        flags = torch.stack([done.all(), nxt.any()])
-        if shard is None:
-            all_done, any_search = flags.tolist()
-        else:
-            f = shard.agree(flags)
-            all_done, any_search = bool(f[:, 0].all()), bool(f[:, 1].any())
-        if all_done:
-            break
+        if shard is not None and bool(shard.agree(done.all()).all()):
+            break  # host read (mp ranks only): every sequence is done
 
     # rebuild the last iteration's tangent covariance at its linearization
     # state, then the final covariance update (esekfom.hpp:665-714)

@@ -29,8 +29,8 @@ def s2_bx(v, length=DEFAULT_LENGTH):
         dim=-2,
     ) / l
     fallback = torch.zeros_like(main)
-    fallback[..., 1, 1] = -1.0
-    fallback[..., 2, 0] = 1.0
+    fallback[..., 1, 1].fill_(-1.0)
+    fallback[..., 2, 0].fill_(1.0)
     return torch.where(safe[..., None, None], main, fallback)
 
 

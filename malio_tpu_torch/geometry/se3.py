@@ -10,7 +10,7 @@ from .so3 import hat, log_so3_mat, quat_to_mat, mat_to_quat, _safe_sqrt_n2, _eye
 def _homogeneous(R, t):
     top = torch.cat([R, t[..., None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -52,7 +52,7 @@ def quat_mul(q, r):
 
 
 def quat_conj(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_normalize(q):

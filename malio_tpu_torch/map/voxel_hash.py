@@ -388,7 +388,10 @@ def _svx_ball_offsets(radius: int) -> np.ndarray:
     return np.asarray(keep, np.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _offsets(radius: int, device):
+    """The ball-pruned offsets on `device`, made once (a copy from the host
+    in a round would stall it)."""
     return torch.as_tensor(_svx_ball_offsets(radius), dtype=torch.int64, device=device)
 
 
@@ -515,7 +518,7 @@ def knn(
     queries = queries.to(dtype).contiguous()
     res = _knn_window(m, queries, k, radius, use_kernel=use_kernel)
     ak = accept_k if accept_k is not None else k
-    acc = torch.tensor(accept_d2, dtype=dtype, device=dev)
+    acc = torch.full((), accept_d2, dtype=dtype, device=dev)
 
     def misses(r):
         _, _, d2, cnt = r
@@ -563,12 +566,10 @@ def knn_cached(
     cache_pts ([B,] Q, cache_k, 3), cache_covs, cache_valid). Queries
     failing the acceptance rule (accept_k found, accept_k-th d2 <=
     accept_d2) are re-searched over the ball-pruned wide window, up to
-    wide_budget of them per sequence; a small always-on tier of 256 takes
-    the common case and the full budget runs only when some sequence's
-    demand exceeds it. The tier is chosen on the host from one device read
-    (the batch's largest escalation count); a sequence with at most 256
-    escalations gets the same answer from either tier, so each sequence's
-    result is the one it would get alone.
+    wide_budget of them per sequence, in one search at the budget whatever
+    the demand: the round reads nothing on the host. Each escalated query's
+    wide search is its own, so each sequence's result is the one it would
+    get alone.
 
     On a row-sharded map (`shard`) each rank searches its own queries
     (its measurement lanes): the windows read the gathered compact table
@@ -592,7 +593,7 @@ def knn_cached(
     ak = accept_k
     nn_pts, nn_covs, nn_d2 = cache_pts[..., :ak, :], cache_covs[..., :ak], cache_d2[..., :ak]
     nn_cnt = torch.sum(nn_d2 < big, dim=-1)
-    acc = torch.tensor(accept_d2, dtype=dtype, device=dev)
+    acc = torch.full((), accept_d2, dtype=dtype, device=dev)
 
     def misses(d2k, cnt):
         need = ~((cnt >= ak) & (d2k[..., ak - 1] <= acc))
@@ -611,17 +612,11 @@ def knn_cached(
     need = misses(nn_d2, nn_cnt)
     needi = need.to(torch.int64)
     rank = torch.cumsum(needi, -1) - needi  # the query's slot in this rank's wide search
-    count = torch.sum(needi, -1)
     grank = rank  # its rank among the sequence's escalations
     if shard is not None:
-        counts = shard.gather(count)
+        counts = shard.gather(torch.sum(needi, -1))
         grank = rank + (torch.cumsum(counts, 0) - counts)[shard.rank][..., None]
-        count = counts.sum(0)  # the same on every rank: so is the tier below
-    small = min(256, wide_budget)
     budget = wide_budget
-    if small < wide_budget:
-        budget = wide_budget if int(torch.amax(count)) > small else small
-
     valid = need & (grank < budget)
     ar = torch.arange(Q, device=dev).expand(rank.shape)
     tgt = torch.where(valid, rank, budget + ar)

@@ -17,7 +17,7 @@ from . import state as st
 from . import tree
 from . import uncertainty as unc
 from .filter.esekf import HShareResult
-from .linalg import mm
+from .linalg import eigvalsh3, mm
 from .map import voxel_hash as vh
 from .ops import kernel_enabled
 
@@ -300,7 +300,7 @@ def make_h_share(cfg, map_state: vh.VoxelHashMap, data: ScanData, x0: st.State, 
 
         # localization weight (laserMapping.cpp:744-759)
         Hp = Hw[..., :3]
-        evals = torch.linalg.eigvalsh(mm(Hp.transpose(-1, -2), Hp))  # ascending
+        evals = eigvalsh3(mm(Hp.transpose(-1, -2), Hp))  # ascending
         sigma = torch.sqrt(torch.clamp(evals, min=0.0))
         ratio = sigma[..., 0] / torch.clamp(sigma[..., 2], min=1e-20)
         w_loc = torch.where(

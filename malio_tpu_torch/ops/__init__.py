@@ -21,6 +21,32 @@ def reset_launches():
         fn.launches_by_shape = {}
 
 
+def count_launch(fn, shape):
+    """One launch of `fn`'s kernel at `shape`, counted by the wrapper where
+    it launches: in `launches` / `launches_by_shape`, or, while the stream
+    is being captured into a CUDA graph, in `captured` (the launch runs at
+    each replay, which `add_launches` counts)."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured[shape] = fn.captured.get(shape, 0) + 1
+        return
+    fn.launches += 1
+    fn.launches_by_shape[shape] = fn.launches_by_shape.get(shape, 0) + 1
+
+
+def captured():
+    """Each wrapper's launches recorded into CUDA graphs so far, by shape."""
+    return {name: dict(fn.captured) for name, fn in wrappers().items()}
+
+
+def add_launches(per_replay, replays: int):
+    """Count `replays` replays of a CUDA graph whose launches by kernel and
+    shape are `per_replay` (a difference of two `captured()`)."""
+    for name, fn in wrappers().items():
+        for shape, n in per_replay.get(name, {}).items():
+            fn.launches += n * replays
+            fn.launches_by_shape[shape] = fn.launches_by_shape.get(shape, 0) + n * replays
+
+
 def kernel_enabled(flag, t) -> bool:
     """A config kernel switch (`knn_kernel`, `deskew_kernel`) for tensor
     `t`: None means on for float32 CUDA tensors and off otherwise."""

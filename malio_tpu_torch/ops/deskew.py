@@ -25,7 +25,7 @@ import torch
 from .. import spline as spl
 from .. import tree
 from ..geometry import so3
-from . import _build
+from . import _build, count_launch
 
 
 def deskew_points_plain(pts, sp: spl.Spline, ext_q, ext_t, lt_q, lt_t):
@@ -132,12 +132,11 @@ def _launch(pts, sp, ext_q, ext_t, lt_q, lt_t, lanes):
                          f"control points and {lanes} lanes a point (caps in csrc/deskew.cu)")
     _build.check(err, "deskew_launch")
     if B * L * N:
-        deskew_points.launches += 1
-        by_shape = deskew_points.launches_by_shape
-        by_shape[B, L, N, C] = by_shape.get((B, L, N, C), 0) + 1
+        count_launch(deskew_points, (B, L, N, C))
     return out
 
 
 deskew_points.launches = 0
 # (sequences B, LiDARs L, points N, control points C) -> launches
 deskew_points.launches_by_shape = {}
+deskew_points.captured = {}  # the same, recorded into CUDA graphs

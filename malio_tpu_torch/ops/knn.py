@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 KMAX = 16  # the kernel's register list length: the largest K it takes
 
@@ -133,11 +133,10 @@ def knn_window(tab, queries, rows, alive, K: int):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "knn_window_launch")
-    knn_window.launches += 1
-    by_shape = knn_window.launches_by_shape
-    by_shape[Q, V, K] = by_shape.get((Q, V, K), 0) + 1
+    count_launch(knn_window, (Q, V, K))
     return out_pts, out_covs, out_d2
 
 
 knn_window.launches = 0
 knn_window.launches_by_shape = {}  # (queries Q, window rows V, K) -> launches
+knn_window.captured = {}  # the same, recorded into CUDA graphs

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 
 def merge_rows_plain(tab, idx, rec):
@@ -101,14 +101,13 @@ def merge_rows(tab, idx, rec):
                  row_bytes // 4, state.data_ptr(), FLAGS,
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "merge_rows_launch")
-    _counted.launches += 1
-    by_shape = _counted.launches_by_shape
-    by_shape[T, N] = by_shape.get((T, N), 0) + 1
+    count_launch(_counted, (T, N))
     return out
 
 
 merge_rows.launches = 0
 merge_rows.launches_by_shape = {}  # (table rows T, updates N) -> launches
+merge_rows.captured = {}  # the same, recorded into CUDA graphs
 # the counts stay on the wrapper when a caller rebinds merge.merge_rows
 # (a recording or timing wrapper around it)
 _counted = merge_rows

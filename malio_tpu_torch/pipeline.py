@@ -12,7 +12,10 @@ Points and the map are f32 on the flagship path; P, Pi and the IEKF solve
 are f64. `step` runs on the device of the carry, which must be `device`.
 It steps B independent sequences in lockstep when the carry and the group
 carry a leading batch axis B (the semantics of jax.vmap(pipeline.step)),
-and one sequence as the batch of one.
+and one sequence as the batch of one. On a card the round is compiled, as
+the reference jits it: one CUDA graph a config and shape (graph.py), which
+`scan_steps` replays round after round; `step_eager` is the same round
+launched op by op, which the CPU and the mp ranks run.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import graph
 from . import state as st
 from . import tree
 from . import propagate as prop
@@ -150,15 +154,62 @@ def _lanes(shard, M: int, *xs):
     return tuple(x[:, shard.rank * n : (shard.rank + 1) * n] for x in xs)
 
 
+# the compiled rounds, one per (config, shapes, dtypes, card)
+_compiled = {}
+
+
+def _compiled_round(cfg, carry: LioCarry, group: prop.MeasureGroup) -> graph.CompiledRound:
+    """The round captured at these batched shapes on this card (captured
+    at the first call)."""
+    key = (cfg, tuple((tuple(t.shape), t.dtype, t.device) for t in tree.leaves((carry, group))))
+    r = _compiled.get(key)
+    if r is None:
+        dev = carry.P.device
+        r = _compiled[key] = graph.CompiledRound(
+            lambda c, g: _round(cfg, c, g, dev, None), carry, group)
+    return r
+
+
+def compiled_rounds():
+    """Every round captured so far (graph.CompiledRound), in capture order."""
+    return list(_compiled.values())
+
+
+def _check(dev, carry, group):
+    if carry.P.device.type != dev.type or group.pts.device.type != dev.type:
+        raise ValueError(f"step: carry and group must live on {dev}")
+
+
 def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=None):
     """One fusion round of B sequences in lockstep (carry and group with a
     leading B), or of one sequence (without it: the batch of one). Returns
     (new carry, StepOutput) in the form it was given.
 
+    On a card without `shard` the round is the compiled one, the port's
+    jax.jit: a CUDA graph captured at the first call for this config and
+    these shapes (graph.CompiledRound), with its inputs copied in and its
+    outputs cloned out. On the CPU, and with `shard`, it is `step_eager`,
+    whose bits the graph replays."""
+    dev = resolve_device(device)
+    _check(dev, carry, group)
+    if dev.type != "cuda" or shard is not None:
+        return step_eager(cfg, carry, group, device=dev, shard=shard)
+    if carry.P.dim() == 2:  # one sequence: a batch of one
+        new_carry, out = _compiled_round(cfg, *tree.unsqueeze((carry, group)))(
+            *tree.unsqueeze((carry, group)))
+        return tree.squeeze(new_carry), tree.squeeze(out)
+    return _compiled_round(cfg, carry, group)(carry, group)
+
+
+def step_eager(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=None):
+    """The round launched op by op (the body the compiled round captures);
+    same contract as `step`.
+
     Each sequence gets what the reference's jax.vmap(pipeline.step) gives
     it: where the reference branches (the map_init cond, the IEKF loop,
-    the re-search cond, the k-NN tier) the port selects per sequence, and
-    the host reads one value for the batch, never one per sequence.
+    the re-search cond, the k-NN tier) the port computes both sides for
+    every sequence and selects per sequence, so the round reads nothing
+    on the host (without `shard`).
 
     `shard` (an mp group, distributed/collectives.py) runs the round over
     its ranks, as the JAX package's mp mesh axis does
@@ -171,12 +222,15 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=No
     writes the rank's rows. The outputs and the new carry's replicated
     fields come out the same on every rank."""
     dev = resolve_device(device)
-    if carry.P.device.type != dev.type or group.pts.device.type != dev.type:
-        raise ValueError(f"step: carry and group must live on {dev}")
+    _check(dev, carry, group)
     if carry.P.dim() == 2:  # one sequence: a batch of one
-        new_carry, out = step(cfg, tree.unsqueeze(carry), tree.unsqueeze(group), device=dev,
-                              shard=shard)
+        new_carry, out = _round(cfg, *tree.unsqueeze((carry, group)), dev, shard)
         return tree.squeeze(new_carry), tree.squeeze(out)
+    return _round(cfg, carry, group, dev, shard)
+
+
+def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
+    """The eager round of a batched carry and group."""
     if shard is not None and group.pts.shape[-2] * shard.size != cfg.max_raw_points:
         raise ValueError(f"step: a rank holds {group.pts.shape[-2]} raw points a LiDAR, not "
                          f"{cfg.max_raw_points} / {shard.size}")
@@ -257,18 +311,19 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=No
     )
 
     # ---- the round's k-NN search + iterated update (where the map exists) ----
+    # the update runs for every sequence and is kept where it has a map
+    # (the reference's lax.cond on map_init, a select under vmap)
     h_share, cache0 = meas.make_h_share(cfg, map_state, scan_data, und.x, shard=shard)
-    upd = esekf.IEKFResult(
+    no_map = esekf.IEKFResult(
         x=und.x, P=und.P, iterations=torch.zeros((B,), dtype=torch.int32, device=dev),
         valid=torch.zeros((B,), dtype=torch.bool, device=dev), cache=cache0, Pi=carry.Pi,
     )
-    if bool(carry.map_init.any()):  # host read: the update runs if any sequence has a map
-        run = esekf.update_iterated(
-            und.x, und.P, h_share, cache0, max_iter=cfg.max_iteration,
-            limit=cfg.converge_limit, search_on_converge=not cfg.single_search,
-            Pi0=carry.Pi, shard=shard,
-        )
-        upd = tree.where(carry.map_init, run, upd)
+    run = esekf.update_iterated(
+        und.x, und.P, h_share, cache0, max_iter=cfg.max_iteration,
+        limit=cfg.converge_limit, search_on_converge=not cfg.single_search,
+        Pi0=carry.Pi, shard=shard,
+    )
+    upd = tree.where(carry.map_init, run, no_map)
 
     # ---- map insertion (map_incremental) ----
     init_col = carry.map_init[:, None]
@@ -336,19 +391,24 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=No
 def scan_steps(cfg, carry: LioCarry, groups: prop.MeasureGroup, device="cuda"):
     """`step` over a chunk of K measure groups (fields with a leading K
     axis, then B for a batched carry): the carry after the last round and
-    a StepOutput whose fields are stacked on a leading K axis, exactly K
-    sequential `step` calls. A whole chunk is the unit a later CUDA-graph
-    capture would take."""
+    a StepOutput whose fields are stacked on a leading K axis, the results
+    of K sequential `step` calls. On a card it replays the compiled round
+    K times, the carry going from round to round on the card (the
+    reference's lax.scan with its body compiled once); on the CPU it runs
+    K `step_eager` calls."""
     dev = resolve_device(device)
+    _check(dev, carry, groups)
+    if dev.type == "cuda":
+        if carry.P.dim() == 3:
+            return _compiled_round(cfg, carry, tree.index(groups, 0)).scan(carry, groups)
+        c1, g1 = tree.unsqueeze(carry), tree.map_tensors(lambda a: a[:, None], groups)
+        new_carry, stacked = _compiled_round(cfg, c1, tree.index(g1, 0)).scan(c1, g1)
+        return tree.squeeze(new_carry), tree.map_tensors(lambda a: a[:, 0], stacked)
     outs = []
     for k in range(groups.pts.shape[0]):
-        carry, out = step(cfg, carry, prop.MeasureGroup(*(a[k] for a in groups)), device=dev)
+        carry, out = step_eager(cfg, carry, tree.index(groups, k), device=dev)
         outs.append(out)
-    stacked = StepOutput(*(
-        torch.stack(f) if torch.is_tensor(f[0]) else torch.tensor(f, device=dev)
-        for f in zip(*outs)
-    ))
-    return carry, stacked
+    return carry, tree.stack(outs)
 
 
 def apply_world_correction(cfg, carry: LioCarry, dq, dt) -> LioCarry:

@@ -76,7 +76,8 @@ def voxel_downsample(pts, aux, mask, voxel_size: float, out_cap: int):
     seg_id = seg_id - seg_id[:, :1]  # a group's first point starts its segment 0
     # segments past out_cap -> the group's dump segment out_cap
     seg = (torch.clamp(seg_id, max=out_cap) + gid * (out_cap + 1)).reshape(-1)
-    lengths = torch.bincount(seg, minlength=G * (out_cap + 1))
+    lengths = torch.zeros(G * (out_cap + 1), dtype=torch.int64, device=dev).scatter_add_(
+        0, seg, torch.ones_like(seg))
 
     def seg_sum(x):
         out = torch.segment_reduce(x, "sum", lengths=lengths, axis=0, unsafe=True, initial=0)

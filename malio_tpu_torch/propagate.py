@@ -116,14 +116,11 @@ def _batch_propagate(x0: st.State, P0, gyros, accs, dts, valids, Q):
     dtype = P0.dtype
     x = x0
     pres, posts = [], []
-    # host read (one for the batch): a step no sequence takes leaves every
-    # state as it is, so its mean step is not computed
-    taken = valids.any(0).tolist()
+    # every step's mean is computed and kept where the sequence takes the
+    # step (the reference's masked lax.scan): no host read
     for k in range(gyros.shape[1]):
-        x2 = x
-        if taken[k]:
-            x2 = dynamics.step_mean(x, dynamics.Input(acc=accs[:, k], gyro=gyros[:, k]), dts[:, k])
-            x2 = st.where_state(valids[:, k], x2, x)
+        x2 = dynamics.step_mean(x, dynamics.Input(acc=accs[:, k], gyro=gyros[:, k]), dts[:, k])
+        x2 = st.where_state(valids[:, k], x2, x)
         pres.append(x)
         posts.append(x2)
         x = x2
@@ -317,7 +314,7 @@ def undistort(cfg, x: st.State, P, hist: History, group: MeasureGroup, Q,
     # ---- temporal compensation poses ----
     lt_b = unc.Pose(*(tree.take(f, base)[:, None] for f in lt_pose))
     tc = unc.compound_inv_pose(lt_b, lt_pose)
-    q_id = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev)
+    q_id = torch.eye(4, dtype=dtype, device=dev)[0]
     tc_q = torch.where(is_base[..., None], q_id, tc.q)
     tc_t = torch.where(is_base[..., None], torch.zeros_like(tc.t), tc.t)
     tc_cov = torch.where(is_base[..., None, None], torch.zeros_like(tc.cov), tc.cov)

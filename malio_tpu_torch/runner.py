@@ -220,8 +220,9 @@ def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda"
         chunk_outs = []
         if use_scan and len(chunk) == prefetch_chunk:
             carry, stacked = pipeline.scan_steps(cfg, carry, gdev, device=dev)
+            host = {f: getattr(stacked, f).cpu().numpy() for f in _SMALL}  # one copy a field
             for k in range(len(chunk)):
-                chunk_outs.append(({f: getattr(stacked, f)[k] for f in _SMALL}, float(bases[k])))
+                chunk_outs.append(({f: host[f][k] for f in _SMALL}, float(bases[k])))
         for k in range(len(chunk_outs), len(chunk)):
             group = prop.MeasureGroup(*(a[k] for a in gdev))
             carry, out = pipeline.step(cfg, carry, group, device=dev)
@@ -239,8 +240,9 @@ def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda"
                     carry = pipeline.apply_world_correction(cfg, carry, dq, dtv)
             if callback is not None:
                 callback(carry, out, float(bases[k]))
-        # one host transfer per chunk (keeps per-round point clouds off
-        # the host and lets the device run ahead within a chunk)
+        # the host reads the chunk's small fields at its end (keeps
+        # per-round point clouds off the host and lets the device run
+        # ahead within a chunk)
         for o, b in chunk_outs:
             rec = {f: (o[f].cpu().numpy() if torch.is_tensor(o[f]) else np.asarray(o[f])) for f in _SMALL}
             rec["end_time"] = float(rec["end_time"]) + b  # absolute time in f64

@@ -55,5 +55,6 @@ def segment_sum(values, ids, num_segments: int):
     (N, ...), ids (N,) int64 in [0, num_segments). Differentiable in
     values (ids are constants)."""
     order = torch.argsort(ids, stable=True)
-    lengths = torch.bincount(ids, minlength=num_segments)
+    lengths = torch.zeros(num_segments, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
     return _SortedSegmentSum.apply(values[order], lengths, ids[order])

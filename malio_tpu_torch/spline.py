@@ -42,7 +42,7 @@ def feed_trajectory(times, poses_q, poses_t, valid, cap: int) -> Spline:
     dtype = poses_t.dtype
     dev = times.device
     T = times.shape[-1]
-    big = torch.tensor(_finfo_max(times.dtype), dtype=times.dtype, device=dev)
+    big = torch.full((), _finfo_max(times.dtype), dtype=times.dtype, device=dev)
 
     n_valid = torch.sum(valid, dim=-1)
     order = torch.argsort(torch.where(valid, times, big), dim=-1, stable=True)

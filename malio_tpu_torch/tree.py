@@ -16,6 +16,13 @@ def map_tensors(fn, tree):
     return fn(tree) if torch.is_tensor(tree) else tree
 
 
+def leaves(tree):
+    """The tensor leaves of nested NamedTuples and tuples, in field order."""
+    if hasattr(tree, "_fields") or isinstance(tree, (tuple, list)):
+        return [leaf for a in tree for leaf in leaves(a)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
 def unsqueeze(tree):
     """A batch of one: every leaf gains a leading axis of length 1."""
     return map_tensors(lambda a: a[None], tree)

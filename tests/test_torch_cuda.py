@@ -34,7 +34,14 @@ at the soak's shapes (malio_tpu_torch/soak.py: 3 x 1024 raw points, 3072
 measurement lanes, a 2^19-slot map of 16,384 rows): the k-NN base window
 Q = 3072, V = 8 and the wide tiers Q = 256 / 1024, V = 208; the deskew at
 1 x 3 x 1024 in both layouts; the insert's write into 2^19 table rows
-from 3072 entries, some or all of them dead.
+from 3072 entries, some or all of them dead. The compiled round
+(pipeline.step on the card, a CUDA graph of the fusion round) captured at
+B = 1 and B = 2 replays the eager round (pipeline.step_eager) bit for bit
+over four rounds, through step and through scan_steps, and each replay
+counts the launches its capture recorded; a carry kept from an earlier
+round is not overwritten by later replays; a round that reads a device
+value on the host fails to capture and pipeline.step raises; a steady
+round and a scan_steps chunk make no host sync.
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
@@ -42,13 +49,14 @@ card (and without JAX, which the repo's conftest configures):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 import pathlib
+import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-from malio_tpu_torch import ba, posegraph, tree
+from malio_tpu_torch import ba, ops, pipeline, posegraph, tree
 from malio_tpu_torch import spline as spl
 from malio_tpu_torch.geometry import se3, so3
 from malio_tpu_torch.map import voxel_hash as vh
@@ -631,3 +639,104 @@ def test_merge_rows_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         merge.merge_rows(tab.to(torch.float16)[:, :3].contiguous(), idx,
                          rec.to(torch.float16)[:, :3].contiguous())  # 6-byte rows
+
+
+def _card_rounds(dev, B, n=4):
+    """A small flagship config (256 points a LiDAR, 2^15 map slots), the
+    carry of B sequences (seeds 0 ..) at their first fused round and
+    their next n groups stacked (n, B, ...) on the card; one sequence
+    without the batch axis for B = 1."""
+    from malio_tpu_torch import batched
+    from malio_tpu_torch.config import flagship_config
+
+    cfg = flagship_config(points_per_lidar=256, map_slots=1 << 15)
+    seqs = [chip_smoke.flagship_groups(cfg, 2.0, seed) for seed in range(B)]
+    carry, chunks, _ = batched._prepare(cfg, seqs, torch.float32, n, dev)
+    groups = chunks[0][0]
+    if B == 1:
+        return cfg, tree.squeeze(carry), tree.map_tensors(lambda a: a[:, 0], groups)
+    return cfg, carry, groups
+
+
+def _bit_equal(got, want, what):
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True, msg=str(what))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_compiled_round_replays_the_eager_round(card, B):
+    """Four rounds through step (the graph captured at the first) and
+    through one scan_steps chunk, each bit-equal to four step_eager rounds
+    in every carry and output field; the replays count the launches the
+    capture recorded, each kernel's at least once a round."""
+    cfg, carry, groups = _card_rounds(card, B)
+    c_e, c_g, outs = carry, carry, []
+    for k in range(4):
+        g = tree.index(groups, k)
+        c_e, o_e = pipeline.step_eager(cfg, c_e, g, device=card)
+        c_g, o_g = pipeline.step(cfg, c_g, g, device=card)
+        _bit_equal((c_g, o_g), (c_e, o_e), f"round {k}")
+        outs.append(o_e)
+    ops.reset_launches()
+    c_s, o_s = pipeline.scan_steps(cfg, carry, groups, device=card)
+    _bit_equal((c_s, o_s), (c_e, tree.stack(outs)), "scan_steps")
+    batched = (carry, groups) if B > 1 else (tree.unsqueeze(carry), tree.map_tensors(
+        lambda a: a[:, None], groups))
+    cr = pipeline._compiled_round(cfg, batched[0], tree.index(batched[1], 0))
+    assert cr.replays >= 8 and cr.nodes
+    for name, fn in ops.wrappers().items():
+        per_round = cr.launches[name]
+        assert sum(per_round.values()) >= 1, name
+        assert fn.launches_by_shape == {s: 4 * n for s, n in per_round.items()}, name
+
+
+def test_an_old_carry_is_not_overwritten_by_later_replays(card):
+    cfg, carry, groups = _card_rounds(card, 1)
+    c1, o1 = pipeline.step(cfg, carry, tree.index(groups, 0), device=card)
+    kept = tree.map_tensors(torch.clone, (carry, c1, o1))
+    c = c1
+    for k in range(1, 4):
+        c, _ = pipeline.step(cfg, c, tree.index(groups, k), device=card)
+    pipeline.scan_steps(cfg, carry, groups, device=card)
+    torch.cuda.synchronize()
+    _bit_equal((carry, c1, o1), kept, "a kept carry")
+
+
+def _failed_capture_child():
+    """In a process of its own (a failed capture leaves the process's CUDA
+    libraries as they were mid-capture): a round whose map size is read on
+    the host. The eager round runs; pipeline.step raises at the capture."""
+    from malio_tpu_torch.map import voxel_hash as vh
+
+    cfg, carry, groups = _card_rounds(torch.device("cuda"), 1)
+    size = vh.size
+    vh.size = lambda m, shard=None: size(m, shard) + 0 * int(size(m, shard).sum())
+    pipeline.step_eager(cfg, carry, tree.index(groups, 0), device="cuda")
+    try:
+        pipeline.step(cfg, carry, tree.index(groups, 0), device="cuda")
+    except RuntimeError as e:
+        print(f"capture raised {type(e).__name__}: {str(e).splitlines()[0]}")
+        return
+    raise AssertionError("a round with a host read was captured")
+
+
+def test_a_failed_capture_raises(card):
+    here = pathlib.Path(__file__).resolve().parent
+    code = (f"import sys; sys.path[:0] = [{str(here)!r}, {str(here.parent)!r}]; "
+            "import test_torch_cuda as t; t._failed_capture_child()")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "capture raised" in r.stdout
+
+
+def test_a_compiled_round_makes_no_host_sync(card):
+    cfg, carry, groups = _card_rounds(card, 2)
+    c, _ = pipeline.step(cfg, carry, tree.index(groups, 0), device=card)  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c, _ = pipeline.step(cfg, c, tree.index(groups, 1), device=card)
+        pipeline.scan_steps(cfg, c, groups, device=card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
