@@ -20,37 +20,57 @@ Per-kernel fields: insert_ms (voxel_hash.insert, whose table write is the
 merge kernel csrc/merge_rows.cu), nn_ms (voxel_hash.knn_cached through the
 k-NN window kernel) and iekf_ms (the round's k-NN search and iterated
 update) through metrics.kernel_timer at the flagship shape, on a dummy
-carry and group of the port's own. The local C++ baseline fields
-(native/baseline/ref_hotloop.cpp, built and run on this host) are kept
-as bench.py has them.
+carry and group of the port's own. The local C++ baseline fields are
+kept as bench.py has them: native/baseline/ref_hotloop.cpp built on this
+host into malio_tpu_torch/_build/ (native/Makefile's flags, rebuilt when
+the source is newer) and run; `local_cpp_binary` names the binary.
 
     python3 bench_torch.py          # on the card
 """
 import json
+import os
 import pathlib
 import subprocess
 import sys
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
 import numpy as np
 
 BASELINE_SCANS_PER_SEC = 20.0
 ATE_GATE_M = 0.05  # the flagship synthetic sequence runs ~0.011 m; 0.05 = broken filter
+CPP_SOURCE = ROOT / "native" / "baseline" / "ref_hotloop.cpp"
+CPP_BINARY = ROOT / "malio_tpu_torch" / "_build" / "ref_hotloop"
+# native/Makefile's `baseline` flags; -march=native makes the binary this host's
+CPP_FLAGS = ["-O3", "-std=c++17", "-Wall", "-march=native", "-fopenmp"]
 
 
-def _local_cpp_baseline():
-    """Measured C++ hot-loop rate on this host (best-effort, as bench.py)."""
+def build_cpp_baseline(src=CPP_SOURCE, out=CPP_BINARY):
+    """Compile the C++ hot loop `src` into `out` on this host, unless `out`
+    is newer than `src`. Returns `out`."""
+    src, out = pathlib.Path(src), pathlib.Path(out)
+    if out.exists() and out.stat().st_mtime > src.stat().st_mtime:
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    subprocess.run([os.environ.get("CXX", "g++"), *CPP_FLAGS, "-o", str(tmp), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    os.replace(tmp, out)
+    return out
+
+
+def _local_cpp_baseline(rounds=80):
+    """Measured C++ hot-loop rate on this host (best-effort, as bench.py),
+    from a binary built here (build_cpp_baseline), never the committed
+    native/baseline/ref_hotloop. `rounds` counts the 10 warm-up rounds."""
     try:
-        root = pathlib.Path(__file__).resolve().parent
-        binp = root / "native" / "baseline" / "ref_hotloop"
-        if not binp.exists():
-            subprocess.run(["make", "-C", str(root / "native"), "baseline"],
-                           check=True, capture_output=True, timeout=180)
-        out = subprocess.run([str(binp), "80"], capture_output=True, timeout=600, text=True)
+        binp = build_cpp_baseline()
+        out = subprocess.run([str(binp), str(rounds)], capture_output=True, timeout=600,
+                             text=True)
         d = json.loads(out.stdout.strip().splitlines()[-1])
         return {"local_cpp_rounds_per_sec": d["rounds_per_sec"],
-                "local_cpp_threads": d["threads"]}
+                "local_cpp_threads": d["threads"], "local_cpp_binary": str(binp)}
     except Exception as e:  # pragma: no cover
         return {"local_cpp_error": str(e)[:120]}
 

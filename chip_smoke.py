@@ -39,10 +39,23 @@ poll() time), through the graph and through the eager round; a checkpoint after 
 template and resumed for rounds 21-30 (bit-equal); the back end with
 loop-closure feedback at full sensor width, a 20 s revisiting circle
 through run_sequence with a WindowSmoother and a PoseGraphBackend
-(feedback=True, capacity 64): a loop closed, a correction fed back, graph
-ATE within 1.1 x odometry ATE + 0.01 m, no drops, and the times of every
-relax(), optimize_window() and apply_world_correction(); one
-optimize_sparse at 2048 keyframes; and voxel_hash.knn at K = 5 through the
+(feedback=True, capacity 2048): a loop closed, a correction fed back, graph
+ATE within 1.1 x odometry ATE + 0.01 m, no drops, the times of every
+relax(), optimize_window(), refine_loop_edge() and
+apply_world_correction(), the rounds a second, and each back-end
+program's capture (seconds, graph nodes, pool, replays); the first
+relax's optimize_sparse, the first optimize_window and the first
+refine_loop_edge replayed again on their own arguments, bit-equal to
+their _eager versions, and once more under
+torch.cuda.set_sync_debug_mode("error"); optimize_sparse at 2048
+keyframes timed at its first call (with the capture), at a replay and
+eagerly (all bit-equal); the block-tridiagonal kernel
+(csrc/block_tridiag.cu) held to its plain version on the last systems of
+the first relax (K = 2048, r = 385), of the solver (2048, 193) and on a
+seeded one (64, 385): the residual within 4x the plain version's, the
+column-wise difference within 1e-9 reported; timed beside the plain
+version and torch.linalg.solve_ex on the dense 6K x 6K system; and
+voxel_hash.knn at K = 5 through the
 kernel bit-equal to its plain route, with the kernel's K = 5 shapes
 checked and timed. Last the batched cell: batched.flagship_benchmark at
 B = 16 (6 s, seeds 0-15) and at B = 1 (8 s), aggregate scans/s per pass,
@@ -95,6 +108,9 @@ exits non-zero; the last line is the device summary.
                                                         # one's: round times by rank
     python3 chip_smoke.py --trace-check SECONDS [--lead-in S]  # count profiler
                                                         # traces that lose device events
+    python3 chip_smoke.py --backend                     # only the back end, the
+                                                        # solver and the block_tridiag
+                                                        # kernel
     python3 chip_smoke.py --batch-bits                  # the first operation whose
                                                         # bits differ between a B = 16
                                                         # round and a sequence's own
@@ -115,6 +131,7 @@ sys.path.insert(0, str(ROOT))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM, f64 outside the tensor cores (NVIDIA's data sheet)
 ATE_GATE_M = 0.05
 PLAIN_ROUNDS = 12
 PLAIN_TOL_M = 0.01
@@ -131,18 +148,29 @@ SCAN_ROUNDS = 32  # two full chunks of run_sequence's 16 through pipeline.scan_s
 GRAPH_GROUPS = 12  # the graph phase's groups: the IMU initialisation's and a few rounds
 RESUME_AT, RESUME_TO = 20, 30  # checkpoint after round 20, resume rounds 21-30
 # the back-end cell: the flagship on a revisiting circle (radius 4 m, closes
-# after ~13.6 s); PoseGraphBackend at its default widths but capacity 64
-# (default 2048), because relax() always runs the whole capacity
+# after ~13.6 s); PoseGraphBackend at its default widths and capacity
 BACKEND_SECONDS = 20.0
 BACKEND_SEED = 0
 BACKEND_CIRCLE = dict(yaw_rate=0.5, speed=2.0)
-BACKEND_CAPACITY = 64
+BACKEND_CAPACITY = 2048
 # the ICP settings tests/test_posegraph.py:611-616 gives sparse keyframe
 # clouds: at the defaults (1 m cells, 4 points a cell, quality 0.2) the
 # 1024-point clouds of this rig fill too few cells, and no loop candidate
 # passed the quality gate in a CPU rehearsal of this cell
 BACKEND_ICP = dict(cell_size=2.0, icp_min_pts=3, min_quality=0.05)
 SOLVER_K = 2048  # one optimize_sparse at the default capacity
+# the block-tridiagonal kernel against its plain version: column by column
+# within TRIDIAG_REL of the plain column's largest entry, and a residual
+# |T Y - RHS| no more than TRIDIAG_RESIDUAL_X times the plain version's
+# (T carries a 1e8 gauge prior: where its conditioning defeats the first,
+# the residual decides); f64 operations a step of the 6x6 chain (S, the
+# Cholesky, V, Sinv, C: five ~6^3 products) and a column a step (B^T w,
+# Sinv r forward, C y back: 3 x 36 multiply-adds)
+TRIDIAG_REL = 1e-9
+TRIDIAG_RESIDUAL_X = 4.0
+TRIDIAG_CHAIN_OPS = 2000
+TRIDIAG_COLUMN_OPS = 216
+TRIDIAG_SEEDED = (64, 385)  # the CPU test's shape, on seeded inputs
 # the batched cell: B flagship sequences (seeds 0 .. B-1) in lockstep through
 # batched.flagship_benchmark, and the same at B = 1 with bench.py's settings
 BATCH = 16
@@ -324,9 +352,9 @@ def device_ms(fn, n=10):
     return sum(us for c in calls for _, us in c) / len(calls) / 1e3, len(calls[0])
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1350,16 +1378,17 @@ def resume_phase(cfg, groups, n_init, saved, res, out_dir, dev="cuda"):
 
 class _Timed:
     """Wraps a module's or object's function for one phase: each call is
-    timed on the host clock between two synchronises."""
+    timed on the host clock between two synchronises; `first` keeps the
+    first call's (args, kwargs)."""
 
     def __init__(self, owner, name):
-        self.owner, self.name, self.ms = owner, name, []
+        self.owner, self.name, self.ms, self.first = owner, name, [], None
         self.fn = getattr(owner, name)
 
     def __enter__(self):
-        import torch
-
         def timed(*a, **kw):
+            if self.first is None:
+                self.first = (a, kw)
             _sync()
             t0 = time.perf_counter()
             out = self.fn(*a, **kw)
@@ -1373,18 +1402,74 @@ class _Timed:
         setattr(self.owner, self.name, self.fn)
 
 
+def capture_report(before, dev="cuda"):
+    """The captures made since graph.captures() held `before`, by program:
+    each one's warm-up and capture seconds, nodes, pool and replays."""
+    from malio_tpu_torch import graph
+
+    out = collections.defaultdict(list)
+    for key, cr in graph.captures()[before:]:
+        out[key[0]].append(compiled_report(cr))
+    return dict(out)
+
+
+def _bits_equal(name, got, want):
+    """Bit-equality of two nests of card tensors, or a failure naming the
+    first leaf that differs."""
+    from malio_tpu_torch import tree
+
+    for k, (a, b) in enumerate(zip(tree.leaves(got), tree.leaves(want))):
+        _same(f"{name} leaf {k}", a.cpu().numpy(), b.cpu().numpy())
+
+
+def program_checks(calls, dev="cuda"):
+    """Each back-end program on the arguments it took on the path: the
+    replay of its capture (the public function on the card) bit-equal to
+    its _eager version, then one more replay under
+    torch.cuda.set_sync_debug_mode("error") (any host sync raises).
+    `calls` maps a name to (public, eager, (args, kwargs)). Returns the
+    arguments of the last tridiagonal solve of the first eager program
+    that ran one."""
+    import torch
+    from malio_tpu_torch.ops import block_tridiag
+
+    tridiag = None
+    for name, (fn, eager, (a, kw)) in calls.items():
+        got = fn(*a, **kw)
+        with _Recording(block_tridiag, "block_tridiag_solve") as rec:
+            want = eager(*a, **kw)
+        if rec.args is not None and tridiag is None:
+            tridiag = tuple(t.clone() for t in rec.args)
+        _bits_equal(f"{name}: graph against eager", got, want)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _bits_equal(f"{name}: a second replay", again, got)
+        log(f"back end: {name} replayed bit-equal to its eager version on the path's arguments; "
+            f"a replay made no host sync (set_sync_debug_mode('error'))")
+    return tridiag
+
+
 def backend_phase(cfg, seconds=BACKEND_SECONDS, dev="cuda"):
     """The back end with loop-closure feedback at full sensor width: the
     flagship config, world and capacities on a revisiting circle for
     BACKEND_SECONDS, through run_sequence with a WindowSmoother at its
     defaults and a PoseGraphBackend(feedback=True) at its default widths
-    but capacity BACKEND_CAPACITY and the sparse-cloud ICP settings
-    BACKEND_ICP. Requires a closed loop, a staged
-    correction, graph ATE <= 1.1 x odometry ATE + 0.01 m (both unaligned,
-    as tests/test_posegraph.py:642 judges) and no drops."""
+    and capacity and the sparse-cloud ICP settings BACKEND_ICP. Requires a
+    closed loop, a staged correction, graph ATE <= 1.1 x odometry ATE +
+    0.01 m (both unaligned, as tests/test_posegraph.py:642 judges) and no
+    drops. Reports the back-end programs' captures; the first relax's
+    optimize_sparse, the first optimize_window and the first
+    refine_loop_edge replayed again and run through their _eager versions
+    (bit-equal), each replay once more with no host sync. Returns (report,
+    launches, the arguments of the eager first relax's last tridiagonal
+    solve)."""
     import numpy as np
     import torch
-    from malio_tpu_torch import ba, pipeline, posegraph, runner, smoother
+    from malio_tpu_torch import ba, graph, pipeline, posegraph, runner, smoother
     from malio_tpu_torch.eval.ate import ate_rmse
     from malio_tpu_torch.io.assemble import assemble_groups
 
@@ -1395,14 +1480,17 @@ def backend_phase(cfg, seconds=BACKEND_SECONDS, dev="cuda"):
     sm = smoother.WindowSmoother(device=dev)
     pg = posegraph.PoseGraphBackend(feedback=True, capacity=BACKEND_CAPACITY, device=dev,
                                     **BACKEND_ICP)
+    before = len(graph.captures())
     reset_launches()
     t0 = time.perf_counter()
-    with _Timed(pg, "relax") as relax, _Timed(ba, "optimize_window") as bundle, \
+    with _Timed(pg, "relax") as relax, _Timed(posegraph, "optimize_sparse") as solve, \
+            _Timed(ba, "optimize_window") as bundle, _Timed(posegraph, "refine_loop_edge") as icp, \
             _Timed(pipeline, "apply_world_correction") as corr:
         res = runner.run_sequence(cfg, groups, dtype=torch.float32, device=dev,
                                   smoother=sm, posegraph=pg)
     wall = _ms_since(t0)
-    counts = read_launches("backend")
+    counts = read_launches("backend", ("knn_window", "deskew", "merge_rows", "block_tridiag"))
+    captures = capture_report(before)
     ate_odo = ate_rmse(res["pos"], traj.pos(res["t"]), align=False)
     ts, ps, _ = res["smoothed"]
     ate_smooth = ate_rmse(ps, traj.pos(ts), align=False) if len(ts) else float("nan")
@@ -1410,21 +1498,30 @@ def backend_phase(cfg, seconds=BACKEND_SECONDS, dev="cuda"):
     ate_graph = ate_rmse(pgp, traj.pos(tg), align=False)
     drops = (int(res["map_dropped"][-1]), int(res["n_meas_dropped"].max()))
     out = dict(seconds=seconds, seed=BACKEND_SEED, capacity=BACKEND_CAPACITY,
-               rounds=len(res["t"]), generate_s=gen_s, wall_ms=wall, ate_odometry_m=ate_odo,
+               rounds=len(res["t"]), generate_s=gen_s, wall_ms=wall,
+               rounds_per_s=len(res["t"]) / (wall / 1e3), ate_odometry_m=ate_odo,
                ate_smoothed_m=ate_smooth, ate_graph_m=ate_graph, keyframes=pg.count,
                smoothed_keyframes=len(ts), n_loop_edges=pg.n_loop_edges,
                n_feedback=pg.n_feedback, map_dropped=drops[0], meas_dropped=drops[1],
-               relax_ms=relax.ms, optimize_window_ms=bundle.ms, apply_world_correction_ms=corr.ms,
-               icp=BACKEND_ICP,
+               relax_ms=relax.ms, optimize_sparse_ms=solve.ms, optimize_window_ms=bundle.ms,
+               refine_loop_edge_ms=icp.ms, apply_world_correction_ms=corr.ms, icp=BACKEND_ICP,
+               captures=captures,
                loop_edge_s=[float(pg.times[e[1]]) for e in pg.edges if e[5] == "loop"])
+    r1 = lambda xs: [round(x, 1) for x in xs]
     log(f"back end ({seconds:.0f} s circle, seed {BACKEND_SEED}, capacity "
-        f"{BACKEND_CAPACITY}): {len(res['t'])} rounds in {wall / 1e3:.1f} s, {pg.count} keyframes, "
+        f"{BACKEND_CAPACITY}): {len(res['t'])} rounds in {wall / 1e3:.1f} s "
+        f"({out['rounds_per_s']:.2f} rounds/s), {pg.count} keyframes, "
         f"{pg.n_loop_edges} loop edges (keyframes at {[round(x, 1) for x in out['loop_edge_s']]} s), "
         f"{pg.n_feedback} corrections fed back; ATE odometry "
         f"{ate_odo:.4f} m, smoothed {ate_smooth:.4f} m, graph {ate_graph:.4f} m (unaligned); drops "
-        f"{drops}; relax() ms {[round(x, 1) for x in relax.ms]}; optimize_window ms "
-        f"{[round(x, 1) for x in bundle.ms]}; apply_world_correction ms "
-        f"{[round(x, 1) for x in corr.ms]}")
+        f"{drops}; relax() ms {r1(relax.ms)} (optimize_sparse {r1(solve.ms)}); optimize_window "
+        f"ms {r1(bundle.ms)}; refine_loop_edge ms {r1(icp.ms)}; apply_world_correction ms "
+        f"{r1(corr.ms)}")
+    for prog, reps in captures.items():
+        for c in reps:
+            log(f"back end: {prog} captured in {c['capture_s']:.3f} s (warm-up "
+                f"{c['warmup_s']:.3f} s), {c['nodes']} graph nodes, pool {c['pool_bytes']} B, "
+                f"{c['replays']} replays, launches a replay {c['launches_per_round']}")
     if not (np.isfinite(pgp).all() and np.isfinite(res["pos"]).all() and np.isfinite(ps).all()):
         raise AssertionError("back end: non-finite trajectory")
     if pg.n_loop_edges < 1 or pg.n_feedback < 1:
@@ -1433,19 +1530,28 @@ def backend_phase(cfg, seconds=BACKEND_SECONDS, dev="cuda"):
         raise AssertionError(f"back end: graph ATE {ate_graph} > 1.1 x {ate_odo} + 0.01")
     if drops != (0, 0):
         raise AssertionError(f"back end: map / measurement drops {drops}")
-    return out, counts
+    for prog in ("optimize_sparse", "optimize_window", "icp"):
+        if prog not in captures:
+            raise AssertionError(f"back end: no {prog} capture ({list(captures)})")
+    tridiag = program_checks({
+        "optimize_sparse (the first relax)": (posegraph.optimize_sparse,
+                                              posegraph.optimize_sparse_eager, solve.first),
+        "optimize_window (the first)": (ba.optimize_window, ba.optimize_window_eager,
+                                        bundle.first),
+        "refine_loop_edge (the first)": (posegraph.refine_loop_edge,
+                                         posegraph.refine_loop_edge_eager, icp.first),
+    }, dev)
+    out["graph_eager_bit_equal"] = out["replay_sync_free"] = True
+    return out, counts, tridiag
 
 
-def solver_phase(K=SOLVER_K, dev="cuda"):
-    """One optimize_sparse at SOLVER_K keyframes with ~20 loop edges, the
-    scene of tests/test_posegraph.py:703 (two laps of a 60 m circle, noisy
-    odometry, loops one lap apart) built with the port's own code, timed
-    on the card. Requires the cost to fall 20-fold and the aligned ATE
-    to fall 30 %, as that test does."""
+def solver_scene(K=SOLVER_K, dev="cuda"):
+    """The scene of tests/test_posegraph.py:703 built with the port's own
+    code: K keyframes on two laps of a 60 m circle, noisy odometry, ~20
+    loop edges one lap apart. Returns (q0, t0, odo, loops, t_gt, t_est)."""
     import numpy as np
     import torch
     from malio_tpu_torch import posegraph as pgm
-    from malio_tpu_torch.eval.ate import ate_rmse
     from malio_tpu_torch.geometry import so3
 
     rng = np.random.default_rng(1)
@@ -1477,21 +1583,179 @@ def solver_phase(K=SOLVER_K, dev="cuda"):
     odo_e = packer._pack_edges([e + ("odo",) for e in odo], K - 1)
     loop_e = packer._pack_edges(loops, 32)
     f64 = dict(dtype=torch.float64, device=dev)
-    q0, t0_ = torch.as_tensor(q_est, **f64), torch.as_tensor(t_est, **f64)
+    return (torch.as_tensor(q_est, **f64), torch.as_tensor(t_est, **f64), odo_e, loop_e, t_gt,
+            t_est, len(loops))
+
+
+def solver_phase(K=SOLVER_K, dev="cuda"):
+    """optimize_sparse at SOLVER_K keyframes with ~20 loop edges
+    (solver_scene), timed on the card: the first call (with its capture),
+    a second (a replay, bit-equal to the first) and the eager version
+    once (bit-equal). Requires the cost to fall 20-fold and the aligned
+    ATE to fall 30 %, as that test does. Returns (report, launches, the
+    last eager iteration's tridiagonal solve arguments)."""
+    import torch
+    from malio_tpu_torch import graph
+    from malio_tpu_torch import posegraph as pgm
+    from malio_tpu_torch.eval.ate import ate_rmse
+    from malio_tpu_torch.ops import block_tridiag
+
+    q0, t0_, odo_e, loop_e, t_gt, t_est, n_loops = solver_scene(K, dev)
+    before = len(graph.captures())
+    reset_launches()
     _sync()
     t0 = time.perf_counter()
-    qs, ts, c1, c0 = pgm.optimize_sparse(q0, t0_, odo_e, loop_e, iters=8)
+    got = pgm.optimize_sparse(q0, t0_, odo_e, loop_e, iters=8)
+    ms_first = _ms_since(t0)
+    t0 = time.perf_counter()
+    again = pgm.optimize_sparse(q0, t0_, odo_e, loop_e, iters=8)
     ms = _ms_since(t0)
+    counts = read_launches("solver", ("block_tridiag",))
+    captures = capture_report(before)
+    t0 = time.perf_counter()
+    with _Recording(block_tridiag, "block_tridiag_solve") as rec:
+        want = pgm.optimize_sparse_eager(q0, t0_, odo_e, loop_e, iters=8)
+    ms_eager = _ms_since(t0)
+    _bits_equal("optimize_sparse: a second replay", again, got)
+    _bits_equal("optimize_sparse: graph against eager", got, want)
+    qs, ts, c1, c0 = got
     ts = ts.cpu().numpy()
     ate0, ate1 = ate_rmse(t_est, t_gt), ate_rmse(ts, t_gt)
     c0, c1 = float(c0), float(c1)
-    out = dict(K=K, loop_edges=len(loops), iters=8, ms=ms, cost0=c0, cost1=c1,
-               ate0_m=ate0, ate1_m=ate1)
-    log(f"optimize_sparse K={K}, {len(loops)} loop edges, 8 iterations: {ms / 1e3:.2f} s on the "
-        f"card; cost {c0:.4g} -> {c1:.4g}; aligned ATE {ate0:.3f} -> {ate1:.3f} m")
+    cap = captures["optimize_sparse"][0]
+    out = dict(K=K, loop_edges=n_loops, iters=8, ms=ms, first_call_ms=ms_first,
+               eager_ms=ms_eager, cost0=c0, cost1=c1, ate0_m=ate0, ate1_m=ate1,
+               capture=cap, graph_eager_bit_equal=True)
+    log(f"optimize_sparse K={K}, {n_loops} loop edges, 8 iterations: {ms:.1f} ms a replayed call "
+        f"(first call with its capture {ms_first:.1f} ms: capture {cap['capture_s']:.3f} s, "
+        f"warm-up {cap['warmup_s']:.3f} s, {cap['nodes']} nodes, pool {cap['pool_bytes']} B); "
+        f"eager {ms_eager:.1f} ms, bit-equal; cost {c0:.4g} -> {c1:.4g}; aligned ATE "
+        f"{ate0:.3f} -> {ate1:.3f} m")
     if not (c1 < 0.05 * c0 and ate1 < 0.7 * ate0):
         raise AssertionError(f"optimize_sparse at K={K}: cost {c0} -> {c1}, ATE {ate0} -> {ate1}")
-    return out
+    return out, counts, tuple(t.clone() for t in rec.args)
+
+
+def tridiag_inputs(K, r, seed=0, damping=0.1):
+    """A seeded SPD block-tridiagonal system with optimize_sparse's
+    structure, as numpy f64: a chain of edge Hessians J^T J (random 6 x 12
+    Jacobians), `damping` on the diagonal, node 0 pinned by the 1e8 gauge
+    prior; RHS (K, 6, r)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    J = rng.normal(size=(K - 1, 6, 12))
+    H = np.einsum("eai,eaj->eij", J, J)
+    D = np.zeros((K, 6, 6))
+    D[:-1] += H[:, :6, :6]
+    D[1:] += H[:, 6:, 6:]
+    D += damping * np.eye(6)
+    D[0] += 1e8 * np.eye(6)
+    return D, np.ascontiguousarray(H[:, :6, 6:]), rng.normal(size=(K, 6, r))
+
+
+def tridiag_residual(D, Boff, RHS, Y):
+    """max |T Y - RHS| over all entries, T applied block by block."""
+    TY = D @ Y
+    TY[:-1] += Boff @ Y[1:]
+    TY[1:] += Boff.transpose(-1, -2) @ Y[:-1]
+    return float((TY - RHS).abs().max())
+
+
+def tridiag_check(D, Boff, RHS):
+    """The kernel against its plain version on (D, Boff, RHS): the largest
+    column-wise difference relative to the plain column's largest entry,
+    the largest absolute difference, and both residuals."""
+    import torch
+    from malio_tpu_torch.ops import block_tridiag as bt
+
+    Y = bt.block_tridiag_solve(D, Boff, RHS)
+    Yp = bt.block_tridiag_solve_plain(D, Boff, RHS)
+    col = (Y - Yp).abs().amax(dim=(0, 1))
+    rel = float((col / Yp.abs().amax(dim=(0, 1)).clamp_min(torch.finfo(Yp.dtype).tiny)).max())
+    return dict(rel_colwise=rel, max_abs_err=float(col.max()),
+                residual=tridiag_residual(D, Boff, RHS, Y),
+                residual_plain=tridiag_residual(D, Boff, RHS, Yp),
+                finite=bool(torch.isfinite(Y).all()))
+
+
+def _dense_tridiag(D, Boff):
+    import torch
+
+    K = D.shape[0]
+    T = torch.zeros((K, 6, K, 6), dtype=D.dtype, device=D.device)
+    i = torch.arange(K, device=D.device)
+    T[i, :, i, :] = D
+    T[i[:-1], :, i[1:], :] = Boff
+    T[i[1:], :, i[:-1], :] = Boff.transpose(-1, -2)
+    return T.reshape(6 * K, 6 * K)
+
+
+def tridiag_row(name, args, path=None):
+    """The block-tridiagonal kernel on args (D, Boff, RHS): held to its
+    plain version (tridiag_check: the residual within TRIDIAG_RESIDUAL_X
+    of the plain one's; the column-wise TRIDIAG_REL reported and, where
+    the conditioning defeats it, named), timed alone on the device
+    (CUPTI, median of 50), per wrapper call, against the plain version (CUDA
+    events around whole calls: ~90 launches a step) and against
+    torch.linalg.solve_ex on the dense 6K x 6K T (assembly excluded; None
+    where the card's memory refuses it); the bound from these inputs."""
+    import torch
+    from malio_tpu_torch.ops import block_tridiag as bt
+
+    D, Boff, RHS = args
+    K, r = D.shape[0], RHS.shape[-1]
+    chk = tridiag_check(*args)
+    if not (chk["finite"] and chk["residual"] <= TRIDIAG_RESIDUAL_X * chk["residual_plain"]):
+        raise AssertionError(f"{name}: kernel residual {chk['residual']} against the plain "
+                             f"version's {chk['residual_plain']} (limit x{TRIDIAG_RESIDUAL_X}), "
+                             f"finite {chk['finite']}")
+    within = chk["rel_colwise"] <= TRIDIAG_REL
+    fn = lambda: bt.block_tridiag_solve(D, Boff, RHS)
+    ms = kernel_ms(fn, "block_tridiag_kernel")
+    c_ms = call_ms(fn, n=20)
+    p_ms = call_ms(lambda: bt.block_tridiag_solve_plain(D, Boff, RHS), n=2 if K > 256 else 10,
+                   warm=1)
+    try:
+        T = _dense_tridiag(D, Boff)
+        rhs = RHS.reshape(6 * K, r)
+        l_ms = call_ms(lambda: torch.linalg.solve_ex(T, rhs, check_errors=False), n=3, warm=1)
+        del T, rhs
+    except torch.cuda.OutOfMemoryError:
+        l_ms = None
+    torch.cuda.empty_cache()
+    nbytes = 8 * (D.numel() + Boff.numel() + 2 * RHS.numel())
+    nops = TRIDIAG_CHAIN_OPS * K + TRIDIAG_COLUMN_OPS * K * r
+    b_ms, b_by = bound(nbytes, nops, F64_OPS_PER_S)
+    lib = f"{l_ms:.3f} ms" if l_ms is not None else "not measured (out of memory)"
+    log(f"kernel {name} K={K} r={r}: residual {chk['residual']:.3g} (plain "
+        f"{chk['residual_plain']:.3g}); column-wise difference {chk['rel_colwise']:.3g} of the "
+        f"plain column ({'within' if within else 'OUTSIDE'} {TRIDIAG_REL}"
+        f"{'' if within else ': the residual decides'}), max |difference| "
+        f"{chk['max_abs_err']:.3g}; device {ms:.4f} ms, call {c_ms:.4f} ms (plain call "
+        f"{p_ms:.2f} ms; torch.linalg.solve_ex on the dense {6 * K}^2 T {lib}); bound "
+        f"{b_ms:.5f} ms by {b_by}")
+    row = dict(name=name, route="cuda", source="malio_tpu_torch/csrc/block_tridiag.cu",
+               replaces="malio_tpu/posegraph.py:243,251 (_block_tridiag_solve's two lax.scans; "
+                        "not a TPU kernel)",
+               shape=f"K={K} r={r}", shape_key=(K, r), counter="block_tridiag", ms=ms,
+               call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, ops=nops, library_ms=l_ms, within_rel=within, **chk)
+    if path:
+        row["path"] = path
+    return row
+
+
+def tridiag_phase(backend_args, solver_args):
+    """block_tridiag rows: the back-end cell's first relax (K = 2048, r =
+    385), the solver cell's (2048, 193) and seeded inputs at the CPU
+    test's shape."""
+    import torch
+
+    D, Boff, RHS = (torch.as_tensor(a, device="cuda") for a in tridiag_inputs(*TRIDIAG_SEEDED))
+    return [tridiag_row("block_tridiag_backend", backend_args, "backend"),
+            tridiag_row("block_tridiag_solver", solver_args, "solver"),
+            tridiag_row("block_tridiag_seeded", (D, Boff, RHS))]
 
 
 def batched_drive(cfg, seqs, record=None):
@@ -2676,6 +2940,44 @@ def gpu_name_and_limit():
     ).stdout.strip().splitlines()[0]
 
 
+def backend_main():
+    """Only the back end: the kernels built, the back-end cell, the solver
+    cell and the block_tridiag rows, each kernel's launches by path; the
+    kernels line and the device summary last."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
+    from malio_tpu_torch.config import flagship_config
+    from malio_tpu_torch.ops import _build
+
+    smi = gpu_name_and_limit()
+    log(smi)
+    t0 = time.perf_counter()
+    _build.build_all(["knn_window", "deskew", "merge_rows", "block_tridiag"])
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    report, paths = dict(gpu=smi), {}
+    report["backend"], paths["backend"], backend_tridiag = backend_phase(flagship_config())
+    report["solver"], paths["solver"], solver_tridiag = solver_phase()
+    rows = tridiag_phase(backend_tridiag, solver_tridiag)
+    for r in rows:
+        key, counts = r.pop("shape_key"), r.pop("counter")
+        r["launches_by_path"] = {p: c.get(counts, {}).get(key, 0) for p, c in paths.items()}
+        r["launches"] = r["launches_by_path"].get(r.get("path"), 0)
+    report["kernels"] = rows
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_backend.json").write_text(json.dumps(report, indent=1, default=str))
+    log(smi)
+    print(json.dumps({"kernels": rows}, default=str))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(save_stage_inputs=None):
     import torch
 
@@ -2707,7 +3009,7 @@ def main(save_stage_inputs=None):
     report = dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    names = ["knn_window", "deskew", "merge_rows"]
+    names = ["knn_window", "deskew", "merge_rows", "block_tridiag"]
     _build.build_all(names)
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s (parallel nvcc, sm_90a)")
@@ -2895,10 +3197,12 @@ def main(save_stage_inputs=None):
                                                      out_dir)
     del saved["carry"]
     done("resume")
-    report["backend"], paths["backend"] = backend_phase(cfg)
+    report["backend"], paths["backend"], backend_tridiag = backend_phase(cfg)
     done("back end")
-    report["solver"] = solver_phase()
-    done("solver")
+    report["solver"], paths["solver"], solver_tridiag = solver_phase()
+    tridiag_rows = tridiag_phase(backend_tridiag, solver_tridiag)
+    del backend_tridiag, solver_tridiag
+    done("solver and block_tridiag kernel")
     report["batched"], batch_paths, batch_rows = batched_phase(floor, smi, report["profile"])
     paths.update(batch_paths)
     done("batched")
@@ -2914,7 +3218,8 @@ def main(save_stage_inputs=None):
     report["soak"], paths["soak"], soak_rows = soak_phase(floor)
     done("soak")
 
-    kernels = knn_rows + desk_rows + merge_kernel_rows + batch_rows + dist_rows + soak_rows
+    kernels = (knn_rows + desk_rows + merge_kernel_rows + batch_rows + dist_rows + soak_rows
+               + tridiag_rows)
     for r in kernels:
         r["floor_ms"] = floor
         if "K" in r:
@@ -2963,6 +3268,8 @@ if __name__ == "__main__":
     ap.add_argument("--dist-mp", metavar="TREE",
                     help="only time the distributed mp world of the package in TREE beside "
                          "this one's")
+    ap.add_argument("--backend", action="store_true",
+                    help="only the back-end and solver cells and the block_tridiag kernel")
     ap.add_argument("--inputs", metavar="FILE", help="inputs saved by --save-stage-inputs")
     ap.add_argument("--outputs", metavar="FILE",
                     help="with --deskew-kernel: keep the first tree's results in FILE, compare "
@@ -2977,6 +3284,8 @@ if __name__ == "__main__":
     a = ap.parse_args()
     if a.batch_bits:
         sys.exit(batch_bits_main())
+    if a.backend:
+        sys.exit(backend_main())
     if a.knn_stage:
         sys.exit(knn_stage_main(a.knn_stage, a.inputs))
     if a.deskew_kernel:

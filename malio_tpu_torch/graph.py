@@ -17,6 +17,13 @@ capture or launch that fails raises; there is no eager fall-back.
 The kernels' wrappers count a launch recorded into the graph apart from
 the launches they make (`ops.count_launch`); each replay adds the round's
 recorded launches to their counts (`ops.add_launches`).
+
+The same capture serves the back end's iterative programs (posegraph's
+LM solvers and ICP, ba.optimize_window): `repeat` replays one iteration n
+times on the same inputs, the counterpart of their lax.scan. `compiled`
+keeps every capture by program, static arguments and shapes (`run` picks
+the capture or the eager loop), as jax.jit caches by static arguments and
+shapes.
 """
 from __future__ import annotations
 
@@ -106,21 +113,74 @@ class CompiledRound:
         self._replay()
         return _clone(self.carry_out), _clone(self.out)
 
-    def scan(self, carry, groups):
-        """K rounds over groups stacked on a leading K axis: the carry after
-        the last, and the outputs stacked on K. The carry goes from round to
-        round through the static buffers; one clone of it comes out."""
-        K = tree.leaves(groups)[0].shape[0]
+    def _loop(self, carry, n, group_at):
+        """n replays from `carry`, the group of replay k from group_at(k)
+        (None: the group already in place), the carry going from replay to
+        replay through the static buffers: one clone of it comes out, and
+        the outputs stacked on n."""
         outs = tree.map_tensors(
-            lambda a: torch.empty((K,) + tuple(a.shape), dtype=a.dtype, device=a.device),
+            lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype, device=a.device),
             self.out)
-        if K == 0:
+        if n == 0:
             return _clone(carry), outs
         _copy(self.carry_in, carry)
-        for k in range(K):
-            _copy(self.group_in, tree.index(groups, k))
+        for k in range(n):
+            g = group_at(k)
+            if g is not None:
+                _copy(self.group_in, g)
             if k:
                 _copy(self.carry_in, self.carry_out)
             self._replay()
             _copy(tree.index(outs, k), self.out)
         return _clone(self.carry_out), outs
+
+    def scan(self, carry, groups):
+        """K rounds over groups stacked on a leading K axis: the carry after
+        the last, and the outputs stacked on K (a lax.scan over groups)."""
+        return self._loop(carry, tree.leaves(groups)[0].shape[0],
+                          lambda k: tree.index(groups, k))
+
+    def repeat(self, carry, group, n: int):
+        """n rounds on one group: the carry after the last, and the outputs
+        stacked on n (a lax.scan whose body sees the same inputs every
+        step, as an iterative solver's)."""
+        return self._loop(carry, n, lambda k: None if k else group)
+
+
+def signature(*trees):
+    """Shapes, dtypes and devices of the tensor leaves: what a capture is
+    specific to."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in tree.leaves(trees))
+
+
+# every capture, by its key: (program name, static arguments, signature)
+_programs = {}
+
+
+def compiled(key, fn, carry, group) -> CompiledRound:
+    """`fn` captured for `key` (at the first call with that key), the
+    port's counterpart of a jax.jit cache entry."""
+    r = _programs.get(key)
+    if r is None:
+        r = _programs[key] = CompiledRound(fn, carry, group)
+    return r
+
+
+def captures(program=None):
+    """The captures so far, in capture order, as (key, CompiledRound): all,
+    or those of one program (a key's first entry)."""
+    return [(k, r) for k, r in _programs.items() if program is None or k[0] == program]
+
+
+def run(key, fn, carry, group, n: int, eager: bool):
+    """n steps of fn(carry, group) -> (carry, out) on one group, the carry
+    threaded through: the carry after the last and the outputs stacked on
+    a leading n. eager=True launches fn op by op (the CPU's way); else the
+    capture of fn for `key` replays n times."""
+    if not eager:
+        return compiled(key, fn, carry, group).repeat(carry, group, n)
+    outs = []
+    for _ in range(n):
+        carry, out = fn(carry, group)
+        outs.append(out)
+    return carry, tree.stack(outs)

@@ -6,12 +6,14 @@ import torch
 def wrappers():
     """Each kernel's wrapper by name. A wrapper counts its launches:
     `launches`, and `launches_by_shape` keyed by the shape it was given.
-    The merge's is the wrapper that counts, also while a caller has
-    rebound `merge.merge_rows` to a recording or timing wrapper around it."""
-    from . import deskew, knn, merge
+    The merge's and the block-tridiagonal solve's are the wrappers that
+    count, also while a caller has rebound `merge.merge_rows` or
+    `block_tridiag.block_tridiag_solve` to a recording or timing wrapper
+    around it."""
+    from . import block_tridiag, deskew, knn, merge
 
     return {"knn_window": knn.knn_window, "deskew": deskew.deskew_points,
-            "merge_rows": merge._counted}
+            "merge_rows": merge._counted, "block_tridiag": block_tridiag._counted}
 
 
 def reset_launches():

@@ -154,25 +154,17 @@ def _lanes(shard, M: int, *xs):
     return tuple(x[:, shard.rank * n : (shard.rank + 1) * n] for x in xs)
 
 
-# the compiled rounds, one per (config, shapes, dtypes, card)
-_compiled = {}
-
-
 def _compiled_round(cfg, carry: LioCarry, group: prop.MeasureGroup) -> graph.CompiledRound:
     """The round captured at these batched shapes on this card (captured
-    at the first call)."""
-    key = (cfg, tuple((tuple(t.shape), t.dtype, t.device) for t in tree.leaves((carry, group))))
-    r = _compiled.get(key)
-    if r is None:
-        dev = carry.P.device
-        r = _compiled[key] = graph.CompiledRound(
-            lambda c, g: _round(cfg, c, g, dev, None), carry, group)
-    return r
+    at the first call), one per (config, shapes, dtypes, card)."""
+    dev = carry.P.device
+    return graph.compiled(("round", cfg, graph.signature(carry, group)),
+                          lambda c, g: _round(cfg, c, g, dev, None), carry, group)
 
 
 def compiled_rounds():
     """Every round captured so far (graph.CompiledRound), in capture order."""
-    return list(_compiled.values())
+    return [r for _, r in graph.captures("round")]
 
 
 def _check(dev, carry, group):

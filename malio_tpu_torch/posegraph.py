@@ -10,14 +10,20 @@ trajectory is filter-only, laserMapping.cpp:1070-1071).
     poses, per-edge blocks from forward-mode Jacobians
     (torch.func.vmap(torch.func.jacfwd(...)));
   * optimize_sparse: the odometry chain as a block-tridiagonal system
-    (block Thomas, two sequential passes) plus the loop couplings by the
-    Woodbury identity;
+    (block Thomas: the kernel csrc/block_tridiag.cu on the card) plus the
+    loop couplings by the Woodbury identity;
   * PoseGraphBackend: the host-side back end riding alongside the filter.
 
 Node tangents are [rotation(0:3); translation(3:6)] (ba._window_cost's
 layout); edge residuals are [trans; rot]. Sums over edges and cells are
 order-fixed (segment.segment_sum), so a relaxation and an ICP gate give
 the same bits on every run on the card.
+
+The solvers and the ICP are the reference's jitted programs: on the card
+each is a CUDA graph captured at its first call (graph.run; an LM
+iteration replayed `iters` times, a whole ICP stage replayed once), and
+reads nothing on the host. The `_eager` versions run the same bodies op
+by op, as the CPU does.
 """
 from __future__ import annotations
 
@@ -27,8 +33,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import graph
 from .device import resolve_device
 from .geometry import so3
+from .linalg import eigh3
+from .ops import block_tridiag
 from .preprocess import cell_ids
 from .segment import segment_sum
 
@@ -118,79 +127,110 @@ def _lm_step(q, t, dx, c, lam, cost_fn):
     return torch.where(accept, q_new, q), torch.where(accept, t_new, t), lam, c_new
 
 
+def _solve(A, b):
+    """A^-1 b with no host read: torch.linalg.solve checks its factorisation's
+    status on the host, solve_ex(check_errors=False) leaves it on the card."""
+    return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+
+
+def _lm(program, body, q, t, group, iters, damping, static, eager):
+    """`iters` LM iterations body((q, t, lam), group) -> ((q, t, lam),
+    (cost before, cost after)) from lam = damping: op by op (eager), or
+    replays of the iteration captured for (program, static, shapes), the
+    counterpart of the reference's jitted lax.scan. Returns (q, t, final
+    cost, initial cost); the initial cost is the first iteration's."""
+    if iters < 1:
+        raise ValueError(f"{program}: iters must be >= 1, got {iters}")
+    lam = torch.full((), damping, dtype=t.dtype, device=t.device)
+    key = (program, static, graph.signature(q, t, group))
+    (q, t, _), (c, c_new) = graph.run(key, body, (q, t, lam), group, iters, eager)
+    return q, t, c_new[-1], c[0]
+
+
+def _optimize_body(gauge: int):
+    def body(carry, edges):
+        q, t, lam = carry
+        K = q.shape[0]
+        n = 6 * K
+        H, b, _ = edge_system(q, t, edges)
+        c = _edges_cost(q, t, edges)
+        Hf = H.reshape(n, n).clone()
+        gsl = torch.arange(6, device=t.device) + 6 * gauge
+        Hf[gsl, gsl] += 1e8
+        # the absolute floor keeps edge-less node blocks solvable
+        Hd = (Hf + lam * torch.diag(torch.clamp(torch.diagonal(Hf), min=1e-9))
+              + 1e-6 * torch.eye(n, dtype=t.dtype, device=t.device))
+        dx = -_solve(Hd, b.reshape(n)).reshape(K, 6)
+        q, t, lam, c_new = _lm_step(q, t, dx, c, lam, lambda qq, tt: _edges_cost(qq, tt, edges))
+        return (q, t, lam), (c, c_new)
+    return body
+
+
 def optimize(q, t, edges: EdgeSet, iters: int = 10, damping=1e-4, gauge: int = 0):
     """Dense damped Gauss-Newton (LM) over all keyframe poses; the gauge
     node is pinned by a strong prior. Returns (q, t, final cost, initial
-    cost)."""
-    K = q.shape[0]
-    n = 6 * K
-    dtype, dev = t.dtype, t.device
-
-    def cost_fn(qq, tt):
-        return _edges_cost(qq, tt, edges)
-
-    c0 = cost_fn(q, t)
-    c_new = c0
-    lam = torch.tensor(damping, dtype=dtype, device=dev)
-    gsl = torch.arange(6, device=dev) + 6 * gauge
-    eye = torch.eye(n, dtype=dtype, device=dev)
-    for _ in range(iters):
-        H, b, _ = edge_system(q, t, edges)
-        c = cost_fn(q, t)
-        Hf = H.reshape(n, n).clone()
-        Hf[gsl, gsl] += 1e8
-        # the absolute floor keeps edge-less node blocks solvable
-        Hd = Hf + lam * torch.diag(torch.clamp(torch.diagonal(Hf), min=1e-9)) + 1e-6 * eye
-        dx = -torch.linalg.solve(Hd, b.reshape(n)).reshape(K, 6)
-        q, t, lam, c_new = _lm_step(q, t, dx, c, lam, cost_fn)
-    return q, t, c_new, c0
+    cost). On a card the iteration is a CUDA graph captured once per
+    shape and gauge and replayed `iters` times; `optimize_eager` launches
+    it op by op (the CPU's way), with the same bits."""
+    return _lm("optimize", _optimize_body(gauge), q, t, edges, iters, damping, gauge,
+               eager=t.device.type != "cuda")
 
 
-def _chol6(A):
-    """Inverse of a 6x6 SPD block by an unrolled Cholesky (rank-1
-    downdates, pivot floored at 1e-30) and forward substitution, as the
-    JAX package keeps it unrolled."""
-    n = 6
-    idx = torch.arange(n, device=A.device)
-    L = torch.zeros_like(A)
-    M = A
-    for j in range(n):
-        piv = torch.sqrt(torch.clamp(M[j, j], min=1e-30))
-        col = torch.where(idx >= j, M[:, j] / piv, torch.zeros_like(piv))
-        L[:, j] = col
-        M = M - col[:, None] * col[None, :]
-    I = torch.eye(n, dtype=A.dtype, device=A.device)
-    V = torch.zeros_like(L)
-    for i in range(n):
-        V[i] = (I[i] - L[i] @ V) / L[i, i]
-    return V.T @ V
+def optimize_eager(q, t, edges: EdgeSet, iters: int = 10, damping=1e-4, gauge: int = 0):
+    """`optimize` op by op."""
+    return _lm("optimize", _optimize_body(gauge), q, t, edges, iters, damping, gauge, eager=True)
 
 
 def _block_tridiag_solve(D, Boff, RHS):
-    """Solve the block-tridiagonal SPD system T Y = RHS by block Thomas:
-    D (K, 6, 6) diagonal blocks, Boff (K-1, 6, 6) with T[i, i+1] = Boff[i],
-    RHS (K, 6, r). A forward elimination and a back substitution, each K
-    sequential 6x6 steps (the reference's two lax.scans)."""
-    K = D.shape[0]
-    zero = torch.zeros_like(Boff[:1])
-    B_prev = torch.cat([zero, Boff])  # row i's predecessor block
-    B_cur = torch.cat([Boff, zero])
-    C = torch.zeros_like(D[0])
-    W = torch.zeros((6, RHS.shape[-1]), dtype=D.dtype, device=D.device)
-    Cs, Ws = [], []
-    for i in range(K):
-        S = D[i] - B_prev[i].T @ C
-        Sinv = _chol6(0.5 * (S + S.T))
-        C = Sinv @ B_cur[i]
-        W = Sinv @ (RHS[i] - B_prev[i].T @ W)
-        Cs.append(C)
-        Ws.append(W)
-    Y = torch.zeros_like(W)
-    Ys = [None] * K
-    for i in range(K - 1, -1, -1):
-        Y = Ws[i] - Cs[i] @ Y
-        Ys[i] = Y
-    return torch.stack(Ys)
+    """T Y = RHS for the block-tridiagonal T (D diagonal blocks, T[i, i+1]
+    = Boff[i]) by block Thomas: the kernel csrc/block_tridiag.cu on the
+    card, its plain version on the CPU (ops/block_tridiag.py)."""
+    return block_tridiag.block_tridiag_solve(D, Boff, RHS)
+
+
+def _sparse_body(gauge: int):
+    def body(carry, edges):
+        q, t, lam = carry
+        odo, loops = edges
+        K = q.shape[0]
+        dtype, dev = t.dtype, t.device
+        Lcap = loops.i.shape[0]
+
+        def cost_fn(qq, tt):
+            return _edges_cost(qq, tt, odo) + _edges_cost(qq, tt, loops)
+
+        He_o, _, be_o, _ = _edge_blocks(q, t, odo)
+        _, Je_l, be_l, _ = _edge_blocks(q, t, loops)
+        D = segment_sum(torch.cat([He_o[:, :6, :6], He_o[:, 6:, 6:]]), torch.cat([odo.i, odo.j]), K)
+        # odometry edge (i, i + 1): its off-diagonal block sits at row i
+        Boff = segment_sum(
+            torch.where(odo.mask[:, None, None], He_o[:, :6, 6:], torch.zeros_like(He_o[:, :6, 6:])),
+            torch.clamp(odo.i, max=K - 2), K - 1)
+        b = segment_sum(torch.cat([be_o[:, :6], be_o[:, 6:], be_l[:, :6], be_l[:, 6:]]),
+                        torch.cat([odo.i, odo.j, loops.i, loops.j]), K)
+        # loop couplings: w J^T J = G G^T with G = (sqrt(w) J)^T, exact
+        # rank-6 factors
+        G = Je_l.transpose(-1, -2)
+        c = cost_fn(q, t)
+        # damping and the gauge prior live on T's diagonal
+        dD = lam * torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1), min=1e-9) + 1e-6
+        D = D + torch.diag_embed(dD)
+        D[gauge] = D[gauge] + 1e8 * torch.eye(6, dtype=dtype, device=dev)
+        # dense U (K, 6, 6L), nonzero only at each loop's (i, j) rows,
+        # built by one-hot contraction
+        onehot_i = (torch.arange(K, device=dev)[:, None] == loops.i[None, :]).to(dtype)
+        onehot_j = (torch.arange(K, device=dev)[:, None] == loops.j[None, :]).to(dtype)
+        Ui = torch.einsum("ke,eab->keab", onehot_i, G[:, :6, :])
+        Uj = torch.einsum("ke,eab->keab", onehot_j, G[:, 6:, :])
+        U = (Ui + Uj).permute(0, 2, 1, 3).reshape(K, 6, 6 * Lcap)
+        Y = _block_tridiag_solve(D, Boff, torch.cat([b[..., None], U], dim=-1))
+        Yb, YU = Y[..., 0], Y[..., 1:]
+        UtYb = torch.einsum("kca,kc->a", U, Yb)
+        S = torch.eye(6 * Lcap, dtype=dtype, device=dev) + torch.einsum("kca,kcb->ab", U, YU)
+        dx = Yb - torch.einsum("kca,a->kc", YU, _solve(S, UtYb))
+        q, t, lam, c_new = _lm_step(q, t, -dx, c, lam, cost_fn)
+        return (q, t, lam), (c, c_new)
+    return body
 
 
 def optimize_sparse(q, t, odo: EdgeSet, loops: EdgeSet, iters: int = 10, damping=1e-4,
@@ -204,62 +244,26 @@ def optimize_sparse(q, t, odo: EdgeSet, loops: EdgeSet, iters: int = 10, damping
       H = T + U U^T,
       H^-1 b = Y_b - Y_U (I + U^T Y_U)^-1 U^T Y_b,   Y_* = T^-1 [b, U].
 
-    Returns (q, t, final cost, initial cost)."""
-    K = q.shape[0]
-    dtype, dev = t.dtype, t.device
-    Lcap = loops.i.shape[0]
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    onehot_i = (torch.arange(K, device=dev)[:, None] == loops.i[None, :]).to(dtype)
-    onehot_j = (torch.arange(K, device=dev)[:, None] == loops.j[None, :]).to(dtype)
+    Returns (q, t, final cost, initial cost). On a card the iteration is a
+    CUDA graph captured once per shape and gauge and replayed `iters`
+    times; `optimize_sparse_eager` launches it op by op (the CPU's way),
+    with the same bits."""
+    return _lm("optimize_sparse", _sparse_body(gauge), q, t, (odo, loops), iters, damping, gauge,
+               eager=t.device.type != "cuda")
 
-    def cost_fn(qq, tt):
-        return _edges_cost(qq, tt, odo) + _edges_cost(qq, tt, loops)
 
-    def system(qq, tt):
-        He_o, _, be_o, _ = _edge_blocks(qq, tt, odo)
-        _, Je_l, be_l, _ = _edge_blocks(qq, tt, loops)
-        D = segment_sum(torch.cat([He_o[:, :6, :6], He_o[:, 6:, 6:]]), torch.cat([odo.i, odo.j]), K)
-        # odometry edge (i, i + 1): its off-diagonal block sits at row i
-        Boff = segment_sum(
-            torch.where(odo.mask[:, None, None], He_o[:, :6, 6:], torch.zeros_like(He_o[:, :6, 6:])),
-            torch.clamp(odo.i, max=K - 2), K - 1)
-        b = segment_sum(torch.cat([be_o[:, :6], be_o[:, 6:], be_l[:, :6], be_l[:, 6:]]),
-                        torch.cat([odo.i, odo.j, loops.i, loops.j]), K)
-        # loop couplings: w J^T J = G G^T with G = (sqrt(w) J)^T, exact
-        # rank-6 factors
-        return D, Boff, b, Je_l.transpose(-1, -2)
-
-    def solve(D, Boff, b, G):
-        # dense U (K, 6, 6L), nonzero only at each loop's (i, j) rows,
-        # built by one-hot contraction
-        Ui = torch.einsum("ke,eab->keab", onehot_i, G[:, :6, :])
-        Uj = torch.einsum("ke,eab->keab", onehot_j, G[:, 6:, :])
-        U = (Ui + Uj).permute(0, 2, 1, 3).reshape(K, 6, 6 * Lcap)
-        Y = _block_tridiag_solve(D, Boff, torch.cat([b[..., None], U], dim=-1))
-        Yb, YU = Y[..., 0], Y[..., 1:]
-        UtYb = torch.einsum("kca,kc->a", U, Yb)
-        S = torch.eye(6 * Lcap, dtype=dtype, device=dev) + torch.einsum("kca,kcb->ab", U, YU)
-        return Yb - torch.einsum("kca,a->kc", YU, torch.linalg.solve(S, UtYb))
-
-    c0 = cost_fn(q, t)
-    c_new = c0
-    lam = torch.tensor(damping, dtype=dtype, device=dev)
-    for _ in range(iters):
-        D, Boff, b, G = system(q, t)
-        c = cost_fn(q, t)
-        # damping and the gauge prior live on T's diagonal
-        dD = lam * torch.clamp(torch.diagonal(D, dim1=-2, dim2=-1), min=1e-9) + 1e-6
-        D = D + torch.diag_embed(dD)
-        D[gauge] = D[gauge] + 1e8 * eye6
-        q, t, lam, c_new = _lm_step(q, t, -solve(D, Boff, b, G), c, lam, cost_fn)
-    return q, t, c_new, c0
+def optimize_sparse_eager(q, t, odo: EdgeSet, loops: EdgeSet, iters: int = 10, damping=1e-4,
+                          gauge: int = 0):
+    """`optimize_sparse` op by op."""
+    return _lm("optimize_sparse", _sparse_body(gauge), q, t, (odo, loops), iters, damping, gauge,
+               eager=True)
 
 
 def _plane_model(pts, mask, cell_size, num_cells: int, min_pts: int):
     """Fixed target plane model: the target cloud voxelised into hashed
     cells, a plane per cell (centroid, smallest-eigenvector normal and a
     planarity gate). Returns (centroid (C, 3), normal (C, 3), valid (C,)).
-    The normal's sign may differ between LAPACK and cuSOLVER; every use
+    The normal's sign may differ from LAPACK's (linalg.eigh3); every use
     of it is sign-invariant."""
     dtype = pts.dtype
     h = cell_ids(pts, cell_size, num_cells)
@@ -270,9 +274,58 @@ def _plane_model(pts, mask, cell_size, num_cells: int, min_pts: int):
     n_safe = torch.clamp(n, min=1.0)
     c = s1 / n_safe[:, None]
     cov = s2 / n_safe[:, None, None] - c[:, :, None] * c[:, None, :]
-    lam, vec = torch.linalg.eigh(cov + 1e-12 * torch.eye(3, dtype=dtype, device=pts.device))
+    lam, normal = eigh3(cov + 1e-12 * torch.eye(3, dtype=dtype, device=pts.device))
     valid = (n >= min_pts) & (lam[:, 0] < 0.1 * torch.clamp(lam[:, 1], min=1e-12))
-    return c, vec[:, :, 0], valid
+    return c, normal, valid
+
+
+def _icp_body(cell_size, num_cells: int, min_pts: int, iters: int, damping, huber):
+    def body(pose, clouds):
+        zq, zt = pose
+        tgt_pts, tgt_mask, src_pts, src_mask = clouds
+        dtype, dev = tgt_pts.dtype, tgt_pts.device
+        cs = torch.full((), cell_size, dtype=dtype, device=dev)
+        c, nrm, valid = _plane_model(tgt_pts, tgt_mask, cs, num_cells, min_pts)
+        z6 = torch.zeros((6,), dtype=dtype, device=dev)
+
+        def residuals(zq, zt, dx):
+            p = so3.quat_rotate(so3.boxplus(zq, dx[:3])[None], src_pts) + (zt + dx[3:])[None]
+            h = cell_ids(p.detach(), cs, num_cells)
+            r = torch.sum(nrm[h] * (p - c[h]), dim=-1)
+            w = (valid[h] & src_mask).to(dtype)
+            aw = r.detach().abs()
+            w = w * torch.where(aw <= huber, torch.ones_like(aw), huber / torch.clamp(aw, min=1e-12))
+            return r, w
+
+        def rms(zq, zt):
+            r, w = residuals(zq, zt, z6)
+            return torch.sqrt(torch.sum(w * r * r) / torch.clamp(torch.sum(w), min=1.0)), w
+
+        rms0, _ = rms(zq, zt)
+        eye = torch.eye(6, dtype=dtype, device=dev)
+        for _ in range(iters):
+            r, w = residuals(zq, zt, z6)
+            J = torch.func.jacfwd(lambda dx, zq=zq, zt=zt: residuals(zq, zt, dx)[0])(z6)  # (M, 6)
+            Jw = J * w[:, None]
+            dx = -_solve(Jw.T @ J + damping * eye, Jw.T @ r)
+            zq, zt = so3.boxplus(zq, dx[:3]), zt + dx[3:]
+        rms1, w1 = rms(zq, zt)
+        frac = torch.sum(w1 > 0).to(dtype) / torch.clamp(torch.sum(src_mask), min=1).to(dtype)
+        # quality judges the final alignment against the larger of the
+        # initial rms and the Huber scale: a converged edge scores ~frac,
+        # a non-overlapping or degenerate one ~0
+        quality = frac * torch.clamp(1.0 - rms1 / torch.clamp(rms0, min=huber), min=0.0)
+        return (zq, zt), quality
+    return body
+
+
+def _icp(tgt_pts, tgt_mask, src_pts, src_mask, zq0, zt0, cell_size, num_cells, min_pts, iters,
+         damping, huber, eager):
+    static = (cell_size, num_cells, min_pts, iters, damping, huber)
+    clouds = (tgt_pts, tgt_mask, src_pts, src_mask)
+    (zq, zt), quality = graph.run(("icp", static, graph.signature(zq0, zt0, clouds)),
+                                  _icp_body(*static), (zq0, zt0), clouds, 1, eager)
+    return zq, zt, quality[0]
 
 
 def icp_point_to_plane(tgt_pts, tgt_mask, src_pts, src_mask, zq0, zt0, cell_size=0.5,
@@ -281,41 +334,32 @@ def icp_point_to_plane(tgt_pts, tgt_mask, src_pts, src_mask, zq0, zt0, cell_size
     """Point-to-plane ICP of a source cloud onto the fixed plane model of a
     target cloud: Gauss-Newton on the relative pose Z, re-associating by
     cell each iteration, Huber-weighted. Returns (zq, zt, quality) with
-    quality = matched fraction * (1 - rms1 / max(rms0, huber))."""
-    dtype, dev = tgt_pts.dtype, tgt_pts.device
-    cs = torch.tensor(cell_size, dtype=dtype, device=dev)
-    c, nrm, valid = _plane_model(tgt_pts, tgt_mask, cs, num_cells, min_pts)
-    z6 = torch.zeros((6,), dtype=dtype, device=dev)
+    quality = matched fraction * (1 - rms1 / max(rms0, huber)). On a card
+    the whole of it (plane model, `iters` iterations, quality) is one CUDA
+    graph captured once per shape and static argument and replayed;
+    `icp_point_to_plane_eager` launches it op by op, with the same bits."""
+    return _icp(tgt_pts, tgt_mask, src_pts, src_mask, zq0, zt0, cell_size, num_cells, min_pts,
+                iters, damping, huber, eager=tgt_pts.device.type != "cuda")
 
-    def residuals(zq, zt, dx):
-        p = so3.quat_rotate(so3.boxplus(zq, dx[:3])[None], src_pts) + (zt + dx[3:])[None]
-        h = cell_ids(p.detach(), cs, num_cells)
-        r = torch.sum(nrm[h] * (p - c[h]), dim=-1)
-        w = (valid[h] & src_mask).to(dtype)
-        aw = r.detach().abs()
-        w = w * torch.where(aw <= huber, torch.ones_like(aw), huber / torch.clamp(aw, min=1e-12))
-        return r, w
 
-    def rms(zq, zt):
-        r, w = residuals(zq, zt, z6)
-        return torch.sqrt(torch.sum(w * r * r) / torch.clamp(torch.sum(w), min=1.0)), w
+def icp_point_to_plane_eager(tgt_pts, tgt_mask, src_pts, src_mask, zq0, zt0, cell_size=0.5,
+                             num_cells: int = 8192, min_pts: int = 5, iters: int = 10,
+                             damping=1e-6, huber=0.3):
+    """`icp_point_to_plane` op by op."""
+    return _icp(tgt_pts, tgt_mask, src_pts, src_mask, zq0, zt0, cell_size, num_cells, min_pts,
+                iters, damping, huber, eager=True)
 
-    rms0, _ = rms(zq0, zt0)
-    zq, zt = zq0, zt0
-    eye = torch.eye(6, dtype=dtype, device=dev)
-    for _ in range(iters):
-        r, w = residuals(zq, zt, z6)
-        J = torch.func.jacfwd(lambda dx, zq=zq, zt=zt: residuals(zq, zt, dx)[0])(z6)  # (M, 6)
-        Jw = J * w[:, None]
-        dx = -torch.linalg.solve(Jw.T @ J + damping * eye, Jw.T @ r)
-        zq, zt = so3.boxplus(zq, dx[:3]), zt + dx[3:]
-    rms1, w1 = rms(zq, zt)
-    frac = torch.sum(w1 > 0).to(dtype) / torch.clamp(torch.sum(src_mask), min=1).to(dtype)
-    # quality judges the final alignment against the larger of the
-    # initial rms and the Huber scale: a converged edge scores ~frac,
-    # a non-overlapping or degenerate one ~0
-    quality = frac * torch.clamp(1.0 - rms1 / torch.clamp(rms0, min=huber), min=0.0)
-    return zq, zt, quality
+
+def _refine(icp, q_i, t_i, cloud_i, mask_i, q_j, t_j, cloud_j, mask_j, cell_size, num_cells,
+            min_pts, iters):
+    zq0, zt0 = relative_pose(q_i, t_i, q_j, t_j)
+    zq1, zt1, qual1 = icp(cloud_i, mask_i, cloud_j, mask_j, zq0, zt0, cell_size=cell_size,
+                          num_cells=num_cells, min_pts=min_pts, iters=iters)
+    zq2, zt2, qual2 = icp(cloud_i, mask_i, cloud_j, mask_j, zq1, zt1, cell_size=cell_size / 2.0,
+                          num_cells=num_cells, min_pts=min_pts, iters=iters, huber=0.15)
+    use_fine = qual2 >= qual1
+    return (torch.where(use_fine, zq2, zq1), torch.where(use_fine, zt2, zt1),
+            torch.maximum(qual1, qual2))
 
 
 def refine_loop_edge(q_i, t_i, cloud_i, mask_i, q_j, t_j, cloud_j, mask_j, cell_size=0.5,
@@ -325,16 +369,19 @@ def refine_loop_edge(q_i, t_i, cloud_i, mask_i, q_j, t_j, cloud_j, mask_j, cell_
     estimates. The coarse stage (cell_size) has the basin for metres of
     drift, the fine one (cell_size / 2, half the Huber scale) polishes;
     the stage with the better quality is kept (on sparse clouds the fine
-    cells can fall under min_pts). Returns (zq, zt, quality)."""
-    zq0, zt0 = relative_pose(q_i, t_i, q_j, t_j)
-    zq1, zt1, qual1 = icp_point_to_plane(cloud_i, mask_i, cloud_j, mask_j, zq0, zt0,
-                                         cell_size=cell_size, min_pts=min_pts, iters=iters)
-    zq2, zt2, qual2 = icp_point_to_plane(cloud_i, mask_i, cloud_j, mask_j, zq1, zt1,
-                                         cell_size=cell_size / 2.0, min_pts=min_pts, iters=iters,
-                                         huber=0.15)
-    use_fine = qual2 >= qual1
-    return (torch.where(use_fine, zq2, zq1), torch.where(use_fine, zt2, zt1),
-            torch.maximum(qual1, qual2))
+    cells can fall under min_pts). Returns (zq, zt, quality). On a card
+    each stage replays its own captured graph (icp_point_to_plane); the
+    relative pose before and the pick after are a few launches;
+    `refine_loop_edge_eager` launches it all op by op."""
+    return _refine(icp_point_to_plane, q_i, t_i, cloud_i, mask_i, q_j, t_j, cloud_j, mask_j,
+                   cell_size, num_cells, min_pts, iters)
+
+
+def refine_loop_edge_eager(q_i, t_i, cloud_i, mask_i, q_j, t_j, cloud_j, mask_j, cell_size=0.5,
+                           num_cells: int = 8192, min_pts: int = 5, iters: int = 10):
+    """`refine_loop_edge` op by op."""
+    return _refine(icp_point_to_plane_eager, q_i, t_i, cloud_i, mask_i, q_j, t_j, cloud_j,
+                   mask_j, cell_size, num_cells, min_pts, iters)
 
 
 def detect_loops(pos, times, current, radius, min_time_gap, exclude_last=2):

@@ -1,8 +1,12 @@
 """Smoke test of bench_torch.py at a miniature shape on the CPU (3 LiDARs
 at 256 points, 3 s, one timed pass), so the port's benchmark cannot break
 silently: it returns bench.py's keys plus the card's name and power limit,
-finite numbers, and the kernel times of its kernel_timer phase."""
+finite numbers, and the kernel times of its kernel_timer phase; the local
+C++ baseline is built on the host that runs it."""
 import math
+import os
+import pathlib
+import shutil
 
 import numpy as np
 import torch
@@ -37,3 +41,27 @@ def test_bench_dummy_inputs_are_a_batch_of_one():
     assert carry.P.shape[0] == 1 and group.pts.shape == (1, 3, 64, 4)
     assert carry.map.tab.shape[0] == 1 and bool(group.imu_mask.all())
     np.testing.assert_allclose(carry.last_imu.numpy(), [[0, 0, 0, 0, 0, 0, 9.81]], rtol=1e-7)
+
+
+def test_local_cpp_baseline_builds_its_own_binary(tmp_path):
+    """The C++ baseline runs a binary built on this host into the package's
+    build directory, never the committed native/baseline/ref_hotloop, and
+    a source newer than the build rebuilds it."""
+    out = bench_torch._local_cpp_baseline(rounds=12)  # 10 warm-up rounds + 2 timed
+    assert "local_cpp_error" not in out, out
+    binp = pathlib.Path(out["local_cpp_binary"]).resolve()
+    build = (pathlib.Path(bench_torch.__file__).resolve().parent / "malio_tpu_torch" / "_build")
+    assert binp.parent == build and binp != bench_torch.CPP_SOURCE.with_suffix("")
+    assert binp.stat().st_mtime > bench_torch.CPP_SOURCE.stat().st_mtime
+    assert out["local_cpp_rounds_per_sec"] > 0
+
+    src, target = tmp_path / "ref_hotloop.cpp", tmp_path / "bin" / "ref_hotloop"
+    shutil.copyfile(bench_torch.CPP_SOURCE, src)
+    assert bench_torch.build_cpp_baseline(src, target) == target
+    built = target.stat().st_mtime_ns
+    assert bench_torch.build_cpp_baseline(src, target) == target
+    assert target.stat().st_mtime_ns == built  # up to date: no rebuild
+    stale = src.stat().st_mtime - 10
+    os.utime(target, (stale, stale))  # the source is now newer than the build
+    bench_torch.build_cpp_baseline(src, target)
+    assert target.stat().st_mtime > src.stat().st_mtime

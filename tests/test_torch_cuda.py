@@ -41,7 +41,14 @@ over four rounds, through step and through scan_steps, and each replay
 counts the launches its capture recorded; a carry kept from an earlier
 round is not overwritten by later replays; a round that reads a device
 value on the host fails to capture and pipeline.step raises; a steady
-round and a scan_steps chunk make no host sync.
+round and a scan_steps chunk make no host sync. The back end's programs
+(posegraph.optimize, optimize_sparse, icp_point_to_plane,
+refine_loop_edge, ba.optimize_window) on small scenes: each replay of
+its capture bit-equal to its _eager version, a second call reusing the
+capture, no host sync in a replay, a program with a host read failing to
+capture (it raises). The block-tridiagonal kernel against its plain
+version at (K, r) = (64, 385) and (2048, 193) (column by column within
+1e-9, the residual within 4x), and its refusals.
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
@@ -684,7 +691,8 @@ def test_compiled_round_replays_the_eager_round(card, B):
         lambda a: a[:, None], groups))
     cr = pipeline._compiled_round(cfg, batched[0], tree.index(batched[1], 0))
     assert cr.replays >= 8 and cr.nodes
-    for name, fn in ops.wrappers().items():
+    for name in ("knn_window", "deskew", "merge_rows"):  # the round's kernels
+        fn = ops.wrappers()[name]
         per_round = cr.launches[name]
         assert sum(per_round.values()) >= 1, name
         assert fn.launches_by_shape == {s: 4 * n for s, n in per_round.items()}, name
@@ -740,3 +748,195 @@ def test_a_compiled_round_makes_no_host_sync(card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---- the back end's programs as captured graphs, and the block-tridiagonal
+# kernel ----
+
+
+def _pose_graph(dev, K=48, n=32, seed=0):
+    """The 48-node scene of tests/test_torch_backend.py built with the
+    port's own code: 32 nodes on a circle with drifted positions, 16 inert,
+    an odometry chain and three loop edges. Returns (q, t, odo, loops,
+    all edges) on dev, f64."""
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    t_gt = np.stack([5 * np.cos(th), 5 * np.sin(th), 0.1 * np.sin(3 * th)], -1)
+    q_gt = np.stack([np.cos(th / 2), np.zeros(n), np.zeros(n), np.sin(th / 2)], -1)
+    t_est = np.zeros((K, 3))
+    q_est = np.tile([1.0, 0, 0, 0], (K, 1))
+    t_est[:n] = t_gt + np.cumsum(rng.normal(size=(n, 3)) * 0.02, axis=0)
+    q_est[:n] = q_gt
+
+    def rel(i, j):
+        zq, zt = posegraph.relative_pose(*(torch.as_tensor(a) for a in
+                                           (q_gt[i], t_gt[i], q_gt[j], t_gt[j])))
+        return zq.numpy(), zt.numpy()
+
+    odo = [(i, i + 1, *rel(i, i + 1), 1.0, "odo") for i in range(n - 1)]
+    loops = [(i, j, *rel(i, j), 3.0, "loop") for (i, j) in [(0, n // 2), (3, n - 2), (1, n // 3)]]
+    pack = posegraph.PoseGraphBackend(capacity=K, cloud_points=1, device=dev)._pack_edges
+    f64 = dict(dtype=torch.float64, device=dev)
+    return (torch.as_tensor(q_est, **f64), torch.as_tensor(t_est, **f64), pack(odo, K - 1),
+            pack(loops, 8), pack(odo + loops, K + 8))
+
+
+def _planes(rng, n):
+    """n points on a floor, two walls and a slanted face, with 5 mm noise."""
+    u = rng.uniform(-6, 6, size=(n, 2))
+    face = rng.integers(0, 4, n)
+    p = np.zeros((n, 3))
+    p[face == 0] = np.c_[u[face == 0], np.zeros((face == 0).sum())]
+    p[face == 1] = np.c_[np.full((face == 1).sum(), 6.0), u[face == 1]]
+    p[face == 2] = np.c_[u[face == 2, 0], np.full((face == 2).sum(), -5.0), u[face == 2, 1] + 6]
+    p[face == 3] = np.c_[u[face == 3], 0.5 * u[face == 3, 0] + 8.0]
+    return p + rng.normal(size=p.shape) * 0.005
+
+
+def _icp_scene(dev, P=1200, seed=3):
+    """Two keyframes 0.6 m and 0.1 rad apart seeing one planar scene, and a
+    guess of the second 0.15 m and 0.03 rad off."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    qi, ti = torch.tensor([1.0, 0, 0, 0], **f64), torch.zeros(3, **f64)
+    qj = so3.quat_normalize(torch.tensor([np.cos(0.05), 0, 0, np.sin(0.05)], **f64))
+    tj = torch.tensor([0.6, 0.2, 0.0], **f64)
+    ci = torch.as_tensor(_planes(rng, P), **f64)
+    cj = so3.quat_rotate_inv(qj, torch.as_tensor(_planes(rng, P), **f64) - tj)
+    mask = torch.ones(P, dtype=torch.bool, device=dev)
+    mask[::11] = False
+    qj_bad = so3.boxplus(qj, torch.tensor([0.0, 0.0, 0.03], **f64))
+    tj_bad = tj + torch.tensor([0.15, -0.1, 0.05], **f64)
+    return qi, ti, ci, mask, qj_bad, tj_bad, cj, mask
+
+
+def _bundle_window(dev, W=4, P=400, seed=11):
+    """A window of W keyframes seeing one planar scene from poses 1 m
+    apart, the poses after the first perturbed."""
+    rng = np.random.default_rng(seed)
+    q = np.tile([1.0, 0, 0, 0], (W, 1))
+    t = np.stack([np.arange(W) * 1.0, np.zeros(W), np.zeros(W)], -1)
+    pts = np.stack([_planes(rng, P) - t[w] for w in range(W)])
+    d = np.concatenate([rng.normal(size=(W, 3)) * 0.01, rng.normal(size=(W, 3)) * 0.03], -1)
+    d[0] = 0
+    qt = so3.boxplus(torch.as_tensor(q), torch.as_tensor(d[:, :3]))
+    f64 = dict(dtype=torch.float64, device=dev)
+    return ba.KeyframeWindow(q=qt.to(**f64), t=torch.as_tensor(t + d[:, 3:], **f64),
+                             pts=torch.as_tensor(pts, **f64),
+                             mask=torch.ones((W, P), dtype=torch.bool, device=dev),
+                             valid=torch.ones(W, dtype=torch.bool, device=dev))
+
+
+def _program(name, dev):
+    """(public function, its _eager version, args, kwargs) of a back-end
+    program on a small scene."""
+    if name in ("optimize", "optimize_sparse"):
+        q, t, odo, loops, edges = _pose_graph(dev)
+        if name == "optimize":
+            return posegraph.optimize, posegraph.optimize_eager, (q, t, edges), dict(iters=5)
+        return (posegraph.optimize_sparse, posegraph.optimize_sparse_eager, (q, t, odo, loops),
+                dict(iters=5))
+    if name == "icp_point_to_plane":
+        qi, ti, ci, mi, qj, tj, cj, mj = _icp_scene(dev)
+        zq0, zt0 = posegraph.relative_pose(qi, ti, qj, tj)
+        return (posegraph.icp_point_to_plane, posegraph.icp_point_to_plane_eager,
+                (ci, mi, cj, mj, zq0, zt0), dict(cell_size=1.5, iters=6))
+    if name == "refine_loop_edge":
+        return (posegraph.refine_loop_edge, posegraph.refine_loop_edge_eager, _icp_scene(dev),
+                dict(cell_size=1.5, iters=6))
+    return (ba.optimize_window, ba.optimize_window_eager, (_bundle_window(dev),),
+            dict(cell_size=2.0, num_cells=8192, min_pts=8, iters=3))
+
+
+PROGRAMS = ["optimize", "optimize_sparse", "icp_point_to_plane", "refine_loop_edge",
+            "optimize_window"]
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_back_end_program_replays_its_eager_version(card, name):
+    """The public function on the card replays a capture, bit-equal to the
+    _eager version op by op; a second call reuses the capture (no new
+    entry in graph.captures(), its replays grow)."""
+    from malio_tpu_torch import graph
+
+    fn, eager, args, kw = _program(name, card)
+    want = eager(*args, **kw)
+    got = fn(*args, **kw)
+    n = len(graph.captures())
+    replays = sum(cr.replays for _, cr in graph.captures())
+    again = fn(*args, **kw)
+    assert len(graph.captures()) == n
+    assert sum(cr.replays for _, cr in graph.captures()) > replays
+    _bit_equal(got, want, f"{name}: graph against eager")
+    _bit_equal(again, want, f"{name}: a second replay")
+    if name == "optimize_sparse":
+        key, cr = [(k, c) for k, c in graph.captures("optimize_sparse")][-1]
+        assert cr.launches["block_tridiag"] == {(48, 1 + 6 * 8): 1}
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_back_end_replay_makes_no_host_sync(card, name):
+    fn, _, args, kw = _program(name, card)
+    fn(*args, **kw)  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _failed_back_end_capture_child():
+    """In a process of its own: ICP whose 6x6 solve checks its status on
+    the host (torch.linalg.solve). The eager version runs; the capture
+    raises."""
+    posegraph._solve = lambda A, b: torch.linalg.solve(A, b)
+    fn, eager, args, kw = _program("icp_point_to_plane", torch.device("cuda"))
+    eager(*args, **kw)
+    try:
+        fn(*args, **kw)
+    except RuntimeError as e:
+        print(f"capture raised {type(e).__name__}: {str(e).splitlines()[0]}")
+        return
+    raise AssertionError("a program with a host read was captured")
+
+
+def test_a_failed_back_end_capture_raises(card):
+    here = pathlib.Path(__file__).resolve().parent
+    code = (f"import sys; sys.path[:0] = [{str(here)!r}, {str(here.parent)!r}]; "
+            "import test_torch_cuda as t; t._failed_back_end_capture_child()")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "capture raised" in r.stdout
+
+
+@pytest.mark.parametrize("K,r", [(64, 385), (2048, 193)])
+def test_block_tridiag_kernel_matches_plain(card, K, r):
+    """Column by column within 1e-9 of the plain column's largest entry,
+    and a residual |T Y - RHS| within 4x the plain version's, on a seeded
+    system of optimize_sparse's structure (chip_smoke.tridiag_inputs);
+    one launch counted at (K, r)."""
+    from malio_tpu_torch.ops import block_tridiag as bt
+
+    args = [torch.as_tensor(a, device=card) for a in chip_smoke.tridiag_inputs(K, r, seed=K)]
+    ops.reset_launches()
+    chk = chip_smoke.tridiag_check(*args)
+    assert bt.block_tridiag_solve.launches_by_shape == {(K, r): 1}
+    assert chk["finite"] and chk["rel_colwise"] <= chip_smoke.TRIDIAG_REL, chk
+    assert chk["residual"] <= chip_smoke.TRIDIAG_RESIDUAL_X * chk["residual_plain"], chk
+
+
+def test_block_tridiag_refuses_what_the_kernel_does_not_take(card):
+    from malio_tpu_torch.ops import block_tridiag as bt
+
+    D, Boff, RHS = (torch.as_tensor(a, device=card) for a in chip_smoke.tridiag_inputs(8, 5))
+    with pytest.raises(ValueError, match="f64"):
+        bt.block_tridiag_solve(D.float(), Boff.float(), RHS.float())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bt.block_tridiag_solve(D, Boff.cpu(), RHS)
+    with pytest.raises(ValueError, match="K-1"):
+        bt.block_tridiag_solve(D, Boff[:-1], RHS)
+    # non-contiguous inputs are made contiguous
+    Y = bt.block_tridiag_solve(D, Boff, RHS.transpose(0, 2).contiguous().transpose(0, 2))
+    torch.testing.assert_close(Y, bt.block_tridiag_solve(D, Boff, RHS), rtol=0, atol=0)

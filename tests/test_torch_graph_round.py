@@ -59,7 +59,8 @@ torch.set_num_threads(1)
 # data-dependent shape, a solver's status) or make a tensor from host data
 _HOST_OPS = {"aten::_local_scalar_dense", "aten::nonzero", "aten::bincount",
              "aten::masked_select", "aten::_linalg_eigh", "aten::linalg_eigh", "aten::_unique2",
-             "aten::unique_dim", "aten::unique_consecutive", "aten::lift_fresh"}
+             "aten::unique_dim", "aten::unique_consecutive", "aten::lift_fresh",
+             "aten::_linalg_check_errors"}
 
 
 class HostReads(TorchDispatchMode):
