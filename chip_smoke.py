@@ -80,8 +80,14 @@ bench_torch.py's kernel times; last the distributed cell: 24 flagship
 rounds through distributed.sharding's worker in two processes sharing
 the card over gloo, dp = 2 x mp = 1 (seeds 0 and 1, each bit-equal to
 its own run) and dp = 1 x mp = 2 (within 1e-3 m of the main path, map
-sizes equal), every rank's launches, collectives and round times, and
-the three kernels at an mp rank's shapes; last the soak cell: 20 s of
+sizes equal), every rank's launches, collectives, their bytes and round
+times, and the three kernels at an mp rank's shapes (also timed as
+replays of a graph that holds the one call); with two or more cards the
+same mp world over NCCL, a card a rank, through the captured round (its
+collectives inside) and eagerly, bit-equal every round, against the main
+path, with no host sync in a steady replay and each rank's capture, and
+with four cards dp = 2 x mp = 2 through the graph (with one card a line
+says that this part did not run, and why); last the soak cell: 20 s of
 soak.py's stream (3 x 1024 points, a 2^19-slot map) through soak.run,
 finite, within the ATE gate, no lane drop, map drops within the map
 layout's contract, every kernel once a round in every chunk, the card's
@@ -111,6 +117,9 @@ exits non-zero; the last line is the device summary.
     python3 chip_smoke.py --backend                     # only the back end, the
                                                         # solver and the block_tridiag
                                                         # kernel
+    python3 chip_smoke.py --distributed                 # only the distributed cell
+                                                        # (over NCCL too with two or
+                                                        # four cards)
     python3 chip_smoke.py --batch-bits                  # the first operation whose
                                                         # bits differ between a B = 16
                                                         # round and a sequence's own
@@ -215,7 +224,8 @@ BITS_ROUNDS = 3  # rounds of the --batch-bits search
 # the distributed cell: the flagship config in two processes on one card over
 # gloo, DIST_ROUNDS rounds through distributed.sharding's worker; dp = 2 x mp =
 # 1 (seeds 0 and 1, each rank bit-equal to its sequence's own run) and dp = 1
-# x mp = 2 (seed 0 against the main path within BATCH_TOL_M, map sizes equal)
+# x mp = 2 (seed 0 against the main path within BATCH_TOL_M, map sizes equal);
+# with more cards the same over NCCL, a card a rank
 DIST_ROUNDS = 24
 DIST_SEED1_SECONDS = 4.0  # seed 1's sequence: its IMU initialisation and DIST_ROUNDS rounds
 DIST_MP = 2
@@ -250,6 +260,24 @@ def call_ms(fn, n=100, warm=3):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def graph_ms(fn, n=100):
+    """Time of one wrapper call as a captured round launches it: the call
+    captured alone into a CUDA graph (after an eager call and a warm-up on
+    the capture's stream), CUDA events around n replays, divided by n."""
+    import torch
+
+    fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        fn()
+    return call_ms(g.replay, n=n)
 
 
 def _trace(fn, n, warm, lead_in_s):
@@ -2443,39 +2471,43 @@ def dataset_phase(out_dir, smi, dev="cuda"):
     return out, paths
 
 
-def dist_world(cfg, inputs, out, dp, mp, B, dev="cuda"):
-    """distributed.sharding's worker in dp x mp processes on the card over
-    gloo (ranks share the card) through sharding.run_local, over B
-    sequences: a process that fails or a world past DIST_DEADLINE_S fails
-    the phase, and its peers are killed. Returns (outputs, carry) of
+def dist_world(cfg, inputs, out, dp, mp, B, dev="cuda", backend=None, eager=False):
+    """distributed.sharding's worker in dp x mp processes through
+    sharding.run_local over B sequences, over `backend` (None: the
+    worker's rule, NCCL with a card a process) and through the eager round
+    where asked: a process that fails or a world past DIST_DEADLINE_S
+    fails the phase, and its peers are killed. Returns (outputs, carry) of
     process 0 (gathered; the carry as numpy arrays) and every rank's stats
-    (launches, collectives per round, round ms, shard rows)."""
+    (launches, collectives and their bytes a round, round ms, shard rows,
+    its capture)."""
     import torch
     from malio_tpu_torch import interop
     from malio_tpu_torch.distributed import sharding
 
-    stats = sharding.run_local(inputs, out, dp * mp, mp, device=dev, deadline_s=DIST_DEADLINE_S)
+    stats = sharding.run_local(inputs, out, dp * mp, mp, device=dev, deadline_s=DIST_DEADLINE_S,
+                               backend=backend, eager=eager)
     outs, carry = sharding.load_outputs(out, sharding.carry_template(cfg, B, torch.float32))
     return (outs, interop.carry_to_numpy(carry)), stats
 
 
-def dist_inputs(cfg, path, seqs, dev="cuda"):
+def dist_inputs(cfg, path, seqs, dev="cuda", rounds=None):
     """The worker's inputs for sequences `seqs` (their measure groups):
-    each IMU-initialised on the card as the replay seeds it
-    (batched._init_seq) and its first DIST_ROUNDS rounds stacked as
+    each IMU-initialised on `dev` as the replay seeds it
+    (batched._init_seq) and its first `rounds` (DIST_ROUNDS) rounds stacked as
     run_sequence rebases them; the carries stacked on the batch axis."""
     import numpy as np
     import torch
     from malio_tpu_torch import batched, runner, tree
     from malio_tpu_torch.distributed import sharding
 
+    rounds = DIST_ROUNDS if rounds is None else rounds
     carries, arrays = [], []
     for groups in seqs:
         c, stream, b0 = batched._init_seq(cfg, groups, torch.float32, dev)
-        if len(stream) < DIST_ROUNDS:
-            raise AssertionError(f"distributed: {len(stream)} rounds, want {DIST_ROUNDS}")
+        if len(stream) < rounds:
+            raise AssertionError(f"distributed: {len(stream)} rounds, want {rounds}")
         carries.append(c)
-        arrays.append(runner._chunk_arrays(stream[:DIST_ROUNDS], np.float32, b0)[0])
+        arrays.append(runner._chunk_arrays(stream[:rounds], np.float32, b0)[0])
     groups = {k: np.stack([a[k] for a in arrays], axis=1) for k in arrays[0]}
     sharding.save_inputs(path, cfg, tree.stack(carries), groups)
 
@@ -2504,27 +2536,42 @@ def check_dist_launches(label, stats):
 def _rank_report(stats, main_round_ms):
     out = []
     for s in stats:
+        calls = s["collectives_per_round"][1:]
+        nbytes = s["collective_bytes_per_round"][1:]
         out.append(dict(
             rank=s["rank"], dp_index=s["dp_index"], mp_index=s["mp_index"], device=s["device"],
+            backend=s["backend"], path=s["path"], compiled=s["compiled"],
+            sync_check=s["sync_check"],
             launches={k: sum(v.values()) for k, v in s["launches"].items()},
             launches_by_shape=s["launches"], collectives_per_round=s["collectives_per_round"],
+            collectives_per_round_median=statistics.median(calls) if calls else 0,
+            collective_bytes_per_round=nbytes[-1] if nbytes else {},
             round_ms=s["round_ms"], round_ms_median=statistics.median(s["round_ms"][1:]),
             main_round_ms_median=main_round_ms, shard_rows=s["shard_rows"], rows=s["rows"]))
     return out
 
 
 def distributed_phase(cfg, groups, res, round_s, out_dir, smi, dev="cuda"):
-    """The distributed cell: DIST_ROUNDS flagship rounds in two processes
-    on this card over gloo, through the sharding worker (make_mesh,
-    carry_sharding, run_batched, gather_carry / gather_outputs).
+    """The distributed cell: DIST_ROUNDS flagship rounds through the
+    sharding worker (make_mesh, carry_sharding, run_batched, gather_carry /
+    gather_outputs).
 
-    dp = 2 x mp = 1, seeds 0 and 1: each rank's sequence bit-equal to its
-    own single-process run (seed 0's is the main path). dp = 1 x mp = 2,
-    seed 0: within BATCH_TOL_M of the main path with equal map sizes every
-    round (every exchange is exact, but a rank's per-lane products run on
-    half the lanes, which cuBLAS may serve with another kernel), and how
-    many rounds are bit-equal. Every rank must launch all three kernels;
-    per rank its launches, collectives a round, round wall time (host
+    In two processes sharing card 0 over gloo (the eager round, as on any
+    card count): dp = 2 x mp = 1, seeds 0 and 1, each rank's sequence
+    bit-equal to its own single-process run (seed 0's is the main path);
+    dp = 1 x mp = 2, seed 0, within BATCH_TOL_M of the main path with
+    equal map sizes every round (every exchange is exact, but a rank's
+    per-lane products run on half the lanes, which cuBLAS may serve with
+    another kernel), and how many rounds are bit-equal.
+
+    With two or more cards, over NCCL, a card a rank (`distributed_nccl`):
+    dp = 1 x mp = 2 through the captured round and through the eager
+    round, bit-equal every round on every rank, the graph's run against
+    the main path as above, no host sync in a steady replay, each rank's
+    capture; with four cards also dp = 2 x mp = 2 through the graph, each
+    dp row against its own sequence's run. With one card it says why it
+    did not run. Every rank must launch all three kernels; per rank its
+    launches, collectives and their bytes a round, round wall time (host
     clock, synchronised) and its map rows. Returns (report, launches by
     path)."""
     import torch
@@ -2542,8 +2589,35 @@ def distributed_phase(cfg, groups, res, round_s, out_dir, smi, dev="cuda"):
             f.unlink()
 
 
-def _distributed_worlds(cfg, groups, groups1, res, res1, main_ms, d, smi, dev):
+def _mp_against(label, outs, ref, b=0):
+    """Sequence b of a world's outputs against its own single-process run:
+    (max |dpos| by round, bit-equal rounds); fails past BATCH_TOL_M or on a
+    map size that differs."""
     import numpy as np
+
+    K = DIST_ROUNDS
+    pos, want = outs["pos"][:, b], ref["pos"][:K]
+    if not np.all(np.isfinite(pos)) or pos.shape != want.shape:
+        raise AssertionError(f"{label}: positions not finite or of shape {pos.shape}")
+    dpos = np.abs(pos.astype(np.float64) - want).max(1)
+    bits = [bool(np.array_equal(pos[k], want[k]) and np.array_equal(outs["quat"][k, b],
+                                                                 ref["quat"][k])) for k in range(K)]
+    sizes, want_sizes = outs["map_size"][:, b], ref["map_size"][:K]
+    if not (dpos.max() <= BATCH_TOL_M and np.array_equal(sizes, want_sizes)):
+        raise AssertionError(f"{label} against its own run: |dpos| by round {dpos.tolist()} m "
+                             f"(limit {BATCH_TOL_M}), map sizes {sizes.tolist()} / "
+                             f"{want_sizes.tolist()}, bit-equal rounds {bits}")
+    return dpos, bits
+
+
+def _check_shards(label, stats, carry, B, mp):
+    rows = [s["shard_rows"] for s in stats]
+    if max(rows) > -(-stats[0]["rows"] // mp) or tuple(carry["map"]["tab"].shape[:2]) != (
+            B, stats[0]["rows"]):
+        raise AssertionError(f"{label}: shard rows {rows} of {stats[0]['rows']}")
+
+
+def _distributed_worlds(cfg, groups, groups1, res, res1, main_ms, d, smi, dev):
     import torch
 
     K = DIST_ROUNDS
@@ -2554,7 +2628,8 @@ def _distributed_worlds(cfg, groups, groups1, res, res1, main_ms, d, smi, dev):
     report, paths = {}, {}
 
     t0 = time.perf_counter()
-    (outs, _), stats = dist_world(cfg, d / "dp.npz", d / "dp_out.npz", dp=2, mp=1, B=2, dev=dev)
+    (outs, _), stats = dist_world(cfg, d / "dp.npz", d / "dp_out.npz", dp=2, mp=1, B=2, dev=dev,
+                                  backend="gloo")
     wall = time.perf_counter() - t0
     check_dist_launches("dist_dp", stats)
     for b, ref in enumerate((res, res1)):
@@ -2564,59 +2639,131 @@ def _distributed_worlds(cfg, groups, groups1, res, res1, main_ms, d, smi, dev):
     report["dp2_mp1"] = dict(wall_s=wall, bit_equal_sequences=2, ranks=_rank_report(stats, main_ms))
 
     t0 = time.perf_counter()
-    (outs, carry), stats = dist_world(cfg, d / "mp.npz", d / "mp_out.npz", dp=1, mp=DIST_MP, B=1, dev=dev)
+    (outs, carry), stats = dist_world(cfg, d / "mp.npz", d / "mp_out.npz", dp=1, mp=DIST_MP, B=1,
+                                      dev=dev, backend="gloo")
     wall = time.perf_counter() - t0
     check_dist_launches("dist_mp", stats)
-    pos, want = outs["pos"][:, 0], res["pos"][:K]
-    if not np.all(np.isfinite(pos)) or pos.shape != want.shape:
-        raise AssertionError(f"dist_mp: positions not finite or of shape {pos.shape}")
-    dpos = np.abs(pos.astype(np.float64) - want).max(1)
-    bits = [bool(np.array_equal(pos[k], want[k]) and np.array_equal(outs["quat"][k, 0],
-                                                                 res["quat"][k])) for k in range(K)]
-    sizes, want_sizes = outs["map_size"][:, 0], res["map_size"][:K]
-    if not (dpos.max() <= BATCH_TOL_M and np.array_equal(sizes, want_sizes)):
-        raise AssertionError(f"dist_mp against the main path: |dpos| by round {dpos.tolist()} m "
-                             f"(limit {BATCH_TOL_M}), map sizes {sizes.tolist()} / "
-                             f"{want_sizes.tolist()}, bit-equal rounds {bits}")
-    rows = [s["shard_rows"] for s in stats]
-    if max(rows) > -(-stats[0]["rows"] // DIST_MP) or tuple(carry["map"]["tab"].shape[:2]) != (
-            1, stats[0]["rows"]):
-        raise AssertionError(f"dist_mp: shard rows {rows} of {stats[0]['rows']}")
+    dpos, bits = _mp_against("dist_mp", outs, res)
+    _check_shards("dist_mp", stats, carry, 1, DIST_MP)
     paths["dist_mp"] = _dist_launches(stats)
     report["dp1_mp2"] = dict(wall_s=wall, max_dpos_m=float(dpos.max()), dpos_m=dpos.tolist(),
                              bit_equal_rounds=int(sum(bits)), rounds=K,
                              ranks=_rank_report(stats, main_ms))
+    cards = torch.cuda.device_count() if dev == "cuda" else 0
+    if cards >= DIST_MP:
+        report["nccl"] = _nccl_worlds(cfg, res, res1, main_ms, d, cards, paths, dev)
+    else:
+        report["nccl"] = dict(ran=False, cards=cards,
+                              why="NCCL takes one rank a card: an mp = 2 world needs two cards")
+        log("distributed_nccl: " + json.dumps(report["nccl"]))
     for label, r in report.items():
-        for k in r["ranks"]:
-            log(f"distributed {label} rank {k['rank']} (dp {k['dp_index']}, mp {k['mp_index']}): "
-                f"launches {k['launches']}, collectives a round {k['collectives_per_round']}, "
-                f"round {k['round_ms_median']:.1f} ms median (main path {main_ms:.1f} ms), map "
-                f"rows {k['shard_rows']}/{k['rows']}")
+        for k in r.get("ranks", []):
+            log(f"distributed {label} rank {k['rank']} (dp {k['dp_index']}, mp {k['mp_index']}, "
+                f"{k['backend']}, {k['path']}): launches {k['launches']}, collectives a round "
+                f"{k['collectives_per_round']} ({k['collective_bytes_per_round']} B), round "
+                f"{k['round_ms_median']:.1f} ms median (main path {main_ms:.1f} ms), map rows "
+                f"{k['shard_rows']}/{k['rows']}")
     mp = report["dp1_mp2"]
-    log(f"distributed: dp=2 x mp=1, {K} rounds of seeds 0 and 1 bit-equal to their own runs "
-        f"({report['dp2_mp1']['wall_s']:.1f} s); dp=1 x mp={DIST_MP}, seed 0: max |dpos| "
-        f"{mp['max_dpos_m']:.3g} m against the main path (limit {BATCH_TOL_M}), map sizes equal, "
-        f"{mp['bit_equal_rounds']} of {K} rounds bit-equal ({mp['wall_s']:.1f} s); {smi}")
+    log(f"distributed: dp=2 x mp=1 over gloo, {K} rounds of seeds 0 and 1 bit-equal to their own "
+        f"runs ({report['dp2_mp1']['wall_s']:.1f} s); dp=1 x mp={DIST_MP} over gloo, seed 0: max "
+        f"|dpos| {mp['max_dpos_m']:.3g} m against the main path (limit {BATCH_TOL_M}), map sizes "
+        f"equal, {mp['bit_equal_rounds']} of {K} rounds bit-equal ({mp['wall_s']:.1f} s), "
+        f"{mp['ranks'][0]['collectives_per_round_median']} collectives and "
+        f"{mp['ranks'][0]['round_ms_median']:.1f} ms a round on rank 0; {smi}")
     return report, paths
+
+
+def _nccl_worlds(cfg, res, res1, main_ms, d, cards, paths, dev):
+    """The NCCL worlds, a card a rank: dp = 1 x mp = 2 through the graph
+    and eagerly (bit-equal every round and in the final carry), the graph
+    against the main path; with four cards dp = 2 x mp = 2 through the
+    graph, each dp row against its own run."""
+    import numpy as np
+
+    K = DIST_ROUNDS
+    out = dict(ran=True, cards=cards)
+    runs = {}
+    for label, eager in (("graph", False), ("eager", True)):
+        t0 = time.perf_counter()
+        runs[label] = dist_world(cfg, d / "mp.npz", d / f"mp_nccl_{label}.npz", dp=1, mp=DIST_MP,
+                                 B=1, dev=dev, backend="nccl", eager=eager)
+        runs[label] += (time.perf_counter() - t0,)
+    (g_outs, g_carry), g_stats, g_wall = runs["graph"]
+    (e_outs, e_carry), e_stats, e_wall = runs["eager"]
+    check_dist_launches("dist_mp_nccl", g_stats)
+    for s in g_stats:
+        c = s["compiled"]
+        if s["backend"] != "nccl" or s["path"] != "graph" or not s["sync_check"]:
+            raise AssertionError(f"dist_mp_nccl rank {s['rank']}: {s['backend']} {s['path']}, "
+                                 f"sync check {s['sync_check']}")
+        per = {k: sum(v.values()) for k, v in c["launches"].items()}
+        if not (per["knn_window"] >= 1 and per["deskew"] == 1 and per["merge_rows"] == 1):
+            raise AssertionError(f"dist_mp_nccl rank {s['rank']}: launches a replay {per}")
+    equal = [all(np.array_equal(g_outs[f][k], v[k], equal_nan=True) for f, v in e_outs.items())
+             for k in range(K)]
+    carry_equal = all(np.array_equal(a, b, equal_nan=True)
+                      for a, b in zip(_leaves(g_carry), _leaves(e_carry)))
+    if not (all(equal) and carry_equal):
+        raise AssertionError(f"dist_mp_nccl: graph against eager, rounds bit-equal {equal}, "
+                             f"final carry bit-equal {carry_equal}")
+    dpos, bits = _mp_against("dist_mp_nccl", g_outs, res)
+    _check_shards("dist_mp_nccl", g_stats, g_carry, 1, DIST_MP)
+    paths["dist_mp_nccl"] = _dist_launches(g_stats)
+    out["dp1_mp2_graph"] = dict(wall_s=g_wall, max_dpos_m=float(dpos.max()), dpos_m=dpos.tolist(),
+                                bit_equal_rounds=int(sum(bits)), rounds=K,
+                                graph_equals_eager_rounds=int(sum(equal)),
+                                ranks=_rank_report(g_stats, main_ms))
+    out["dp1_mp2_eager"] = dict(wall_s=e_wall, ranks=_rank_report(e_stats, main_ms))
+    log(f"distributed_nccl: dp=1 x mp={DIST_MP}, {K} rounds through the graph bit-equal to the "
+        f"eager NCCL round every round and in the final carry; max |dpos| {dpos.max():.3g} m "
+        f"against the main path, map sizes equal, {sum(bits)} of {K} rounds bit-equal; no host "
+        f"sync in a steady replay on any rank")
+    for s in g_stats:
+        c = s["compiled"]
+        log(f"distributed_nccl rank {s['rank']}: capture {c['capture_s']:.3f} s, warm-up "
+            f"{c['warmup_s']:.3f} s, {c['nodes']} nodes, pool {c['pool_bytes']} B, static "
+            f"buffers {c['static_bytes']} B, launches a replay {c['launches']}, collectives a "
+            f"replay {c['collectives']}")
+    if cards >= 4:
+        t0 = time.perf_counter()
+        (outs, carry), stats = dist_world(cfg, d / "dp.npz", d / "dp2mp2_nccl.npz", dp=2,
+                                          mp=DIST_MP, B=2, dev=dev, backend="nccl")
+        wall = time.perf_counter() - t0
+        check_dist_launches("dist_dp2_mp2_nccl", stats)
+        rows = {}
+        for b, ref in enumerate((res, res1)):
+            dpos, bits = _mp_against(f"dist_dp2_mp2_nccl sequence {b}", outs, ref, b)
+            rows[f"seed{b}"] = dict(max_dpos_m=float(dpos.max()), bit_equal_rounds=int(sum(bits)))
+        _check_shards("dist_dp2_mp2_nccl", stats, carry, 2, DIST_MP)
+        if not all(s["path"] == "graph" and s["sync_check"] for s in stats):
+            raise AssertionError("dist_dp2_mp2_nccl: a rank did not run or check the graph")
+        paths["dist_dp2_mp2_nccl"] = _dist_launches(stats)
+        out["dp2_mp2_graph"] = dict(wall_s=wall, rounds=K, sequences=rows,
+                                    ranks=_rank_report(stats, main_ms))
+        log(f"distributed_nccl: dp=2 x mp={DIST_MP} through the graph, {K} rounds: {rows}")
+    else:
+        out["dp2_mp2_graph"] = dict(ran=False, why=f"{cards} cards: dp = 2 x mp = 2 needs four")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 def dist_mp_kernel_inputs(m, queries, qmask, cfg, deskew_args, merge_args):
     """Each kernel's arguments as mp rank 0 of the distributed path (mp =
     DIST_MP) gets them from the main path's last round: the base window
-    over its share of the lanes against the compact table of every rank's
-    window rows (voxel_hash._window_table: their union in row order), the
-    deskew over its slice of the raw points, and the insert's write into
-    its rows of the table (targets past them are skipped)."""
-    import torch
+    over its share of the lanes against the whole table (which the rank
+    gathers from every rank's rows, voxel_hash.whole_map), the deskew over
+    its slice of the raw points, and the insert's write into its rows of
+    the table (targets past them are skipped)."""
     from malio_tpu_torch.map import voxel_hash as vh
 
     b, alive = vh._window_rows(m, queries, cfg.knn_radius, qmask)
-    ids = torch.unique(b)
-    remap = torch.full((m.tab.shape[0],), -1, dtype=torch.int64, device=b.device)
-    remap[ids] = torch.arange(ids.numel(), device=b.device)
     n = queries.shape[0] // DIST_MP
-    knn_args = (m.tab[ids].contiguous(), queries[:n].contiguous(), remap[b[:n]].contiguous(),
-                alive[:n].contiguous())
+    knn_args = (m.tab, queries[:n].contiguous(), b[:n].contiguous(), alive[:n].contiguous())
     pts, *rest = deskew_args
     desk = (pts[:, : pts.shape[1] // DIST_MP].contiguous(), *rest)
     tab, idx, rec = merge_args
@@ -2978,6 +3125,51 @@ def backend_main():
     return 0
 
 
+def distributed_main():
+    """Only the distributed cell: the kernels built, the flagship's main
+    path (seed 0, run_sequence through the compiled round) that the worlds
+    are held against, then the distributed phase; details in
+    chip_smoke_distributed.json beside chip_smoke.json, the device summary
+    last."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
+    from malio_tpu_torch import runner
+    from malio_tpu_torch.config import flagship_config
+    from malio_tpu_torch.ops import _build
+
+    smi = gpu_name_and_limit()
+    log(smi)
+    t0 = time.perf_counter()
+    _build.build_all(["knn_window", "deskew", "merge_rows"])
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    cfg = flagship_config()
+    groups, _ = flagship_groups(cfg, 8.0, seed=0)
+    stamps = []
+
+    def tick(carry, out, base):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    res = runner.run_sequence(cfg, groups, dtype=torch.float32, device="cuda", callback=tick)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    report, paths = distributed_phase(cfg, groups, res, np.diff(stamps), out_dir, smi)
+    report.update(gpu=smi, cards=torch.cuda.device_count(),
+                  launches_by_path={p: {k: {",".join(map(str, sh)): n for sh, n in c[k].items()}
+                                        for k in c} for p, c in paths.items()})
+    (out_dir / "chip_smoke_distributed.json").write_text(json.dumps(report, indent=1))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(save_stage_inputs=None):
     import torch
 
@@ -3124,6 +3316,8 @@ def main(save_stage_inputs=None):
                                                       last_deskew["args"], main_merge_args)
     dist_rows = [knn_row("knn_window_dist_mp", mp_knn, K),
                  deskew_phase("deskew_dist_mp", mp_desk, floor)]
+    dist_rows[0]["graph_ms"] = graph_ms(lambda: knn.knn_window(*mp_knn, K))
+    dist_rows[1]["graph_ms"] = graph_ms(lambda: deskew.deskew_points(*batch_args(mp_desk)))
     del mp_knn, mp_desk
     L = cfg.num_lidars
     desk_rows = [
@@ -3146,6 +3340,7 @@ def main(save_stage_inputs=None):
     merge_kernel_rows = merge_kernel_phase({"merge_rows_path": main_merge_args,
                                             "merge_rows_transform": corr.args}, floor)
     dist_rows.append(merge_phase("merge_rows_dist_mp", *mp_merge, floor))
+    dist_rows[2]["graph_ms"] = graph_ms(lambda: merge.merge_rows(*mp_merge))
     for r in dist_rows:
         r["path"] = "dist_mp"
     del main_merge_args, corr.args, mp_merge
@@ -3231,7 +3426,7 @@ def main(save_stage_inputs=None):
         # path for the rows at the batched shapes) at the row's shape
         r["launches"] = r["launches_by_path"][r.get("path", "main")]
     keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
-            "call_ms", "plain_ms", "plain_call_ms", "bound_ms", "bound_by", "library_ms",
+            "call_ms", "graph_ms", "plain_ms", "plain_call_ms", "bound_ms", "bound_by", "library_ms",
             "library_call_ms", "bound_with_floor_ms", "launches_by_path")
     report.update(
         kernels=kernels, rounds=rounds, wall_s=wall, steady_scans_per_s=steady, ate_m=ate,
@@ -3270,6 +3465,8 @@ if __name__ == "__main__":
                          "this one's")
     ap.add_argument("--backend", action="store_true",
                     help="only the back-end and solver cells and the block_tridiag kernel")
+    ap.add_argument("--distributed", action="store_true",
+                    help="only the distributed cell (its NCCL part with two or more cards)")
     ap.add_argument("--inputs", metavar="FILE", help="inputs saved by --save-stage-inputs")
     ap.add_argument("--outputs", metavar="FILE",
                     help="with --deskew-kernel: keep the first tree's results in FILE, compare "
@@ -3286,6 +3483,8 @@ if __name__ == "__main__":
         sys.exit(batch_bits_main())
     if a.backend:
         sys.exit(backend_main())
+    if a.distributed:
+        sys.exit(distributed_main())
     if a.knn_stage:
         sys.exit(knn_stage_main(a.knn_stage, a.inputs))
     if a.deskew_kernel:

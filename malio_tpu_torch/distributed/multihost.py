@@ -38,8 +38,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     environment torchrun sets (MASTER_ADDR / MASTER_PORT, WORLD_SIZE,
     RANK).
 
-    The backend is NCCL when each rank has a card of its own: CUDA is
-    there and the host's ranks (LOCAL_WORLD_SIZE, else
+    The backend is NCCL when each rank has a card of its own (`backend_for`):
+    CUDA is there and the host's ranks (LOCAL_WORLD_SIZE, else
     `local_device_count`) are no more than its cards. Otherwise, or when
     `backend="gloo"` asks for it, gloo: ranks that share a card (NCCL
     refuses two ranks on one device) or run on the CPU. Under NCCL the
@@ -57,15 +57,22 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         raise ValueError(f"initialize: pass the coordinator, the process count and the "
                          f"process id, or set {e.args[0]}") from None
     if backend is None:
-        local = int(env.get("LOCAL_WORLD_SIZE", 0)) or local_device_count
-        own_card = torch.cuda.is_available() and local and local <= torch.cuda.device_count()
-        backend = "nccl" if own_card else "gloo"
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        backend = backend_for(int(env.get("LOCAL_WORLD_SIZE", 0)) or local_device_count, cards)
     if backend == "nccl":
         torch.cuda.set_device(sharding.local_card(process_id))
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes,
         rank=process_id, timeout=datetime.timedelta(seconds=timeout_s),
     )
+
+
+def backend_for(local_ranks, cards: int) -> str:
+    """The backend of a host that runs `local_ranks` ranks (None: not
+    known) and has `cards` cards: NCCL when each rank has a card of its
+    own, else gloo (ranks on the CPU, or sharing a card, which NCCL
+    refuses)."""
+    return "nccl" if local_ranks and cards and local_ranks <= cards else "gloo"
 
 
 def _host_of_ranks():
@@ -170,11 +177,7 @@ def _smoke(device="cuda"):
 
     mesh = cross_host_mesh(device=device)
     dp, mp = mesh.dp, mesh.mp
-    n = dist.get_world_size()
-    # a first collective while the processes are still in step
-    total = mesh.ranks.sum(torch.ones((), dtype=torch.int64, device=mesh.device))
-    if int(total) != n:
-        raise AssertionError(f"probe all-reduce gave {int(total)}, want {n}")
+    n = dist.get_world_size()  # mesh_from_layout probed every group of this rank
 
     cfg = _tiny_cfg(L=2, pts=128)
     carry, group = _dummy_inputs(cfg, torch.float64, mesh.device)
@@ -219,4 +222,7 @@ if __name__ == "__main__":
     try:
         _smoke("cpu" if a.cpu else "cuda")
     finally:
+        from .. import graph
+
+        graph.release()  # the graphs that hold NCCL collectives go before their group
         dist.destroy_process_group()

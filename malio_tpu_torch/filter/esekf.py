@@ -11,8 +11,9 @@ iterations: the reference's lax.while_loop under vmap, with no host read.
 Each iteration re-searches where a sequence's `converge` asks for it and
 takes the direct inverse where the Newton-Schulz inverse fails its
 verification, both as per-sequence selects (the reference's lax.conds).
-Only an mp rank (`shard`) reads on the host, through `agree`: whether any
-sequence needs the direct inverse, and whether all are done.
+An mp rank runs the same loop: its h_share_fn returns every rank's
+measurement rows, so every rank computes the same bits and no rank needs
+another's decision.
 """
 from __future__ import annotations
 
@@ -151,17 +152,13 @@ def update_iterated(
     r_floor_value: float = 1e-3,
     search_on_converge: bool = True,
     Pi0=None,
-    shard=None,
 ) -> IEKFResult:
     """Iterated update of B sequences; h_share_fn(x, search, cache) ->
     (HShareResult, cache), with `search` False (no sequence re-searches:
     `search_on_converge` off) or a (B,) bool tensor (see
     measurement.make_h_share). Pi0 warm-starts the information-matrix
     inverse (Newton-Schulz, entry gate 0.95 per sequence, verified to
-    1e-7, else the direct inverse). With `shard` (an mp group; h_share_fn
-    returns every rank's rows) the loop stops once every sequence is done
-    and skips the direct inverse that no sequence needs, each decided from
-    every rank's value (`agree`), so all ranks run the same iterations."""
+    1e-7, else the direct inverse)."""
     L = x0.num_lidars
     n = st.dof(L)
     act = 6 * (L + 1)
@@ -211,10 +208,7 @@ def update_iterated(
             X = 0.5 * (X + X.transpose(-1, -2))
         X_w = torch.where((_sbound(E0) < 0.95)[:, None, None], X, Pi_prev)
         verified = _sbound(I_n - mm(P_temp, X_w)) < 1e-7
-        if shard is not None and bool(shard.agree(verified.all()).all()):
-            Pi = X_w  # host read (mp ranks only): no sequence needs the direct inverse
-        else:
-            Pi = torch.where(verified[:, None, None], X_w, _spd_inverse(P_temp))
+        Pi = torch.where(verified[:, None, None], X_w, _spd_inverse(P_temp))
 
         Pia = Pi[..., :act]
         K_h = mm(Pia, mm(HTw, res.h.to(sdtype)[..., None]))
@@ -244,8 +238,6 @@ def update_iterated(
         converge = torch.where(run, conv_new, converge)
         i = torch.where(run, i + 1, i)
         done = done | (run & done_new)
-        if shard is not None and bool(shard.agree(done.all()).all()):
-            break  # host read (mp ranks only): every sequence is done
 
     # rebuild the last iteration's tangent covariance at its linearization
     # state, then the final covariance update (esekfom.hpp:665-714)

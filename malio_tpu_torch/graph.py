@@ -16,7 +16,9 @@ capture or launch that fails raises; there is no eager fall-back.
 
 The kernels' wrappers count a launch recorded into the graph apart from
 the launches they make (`ops.count_launch`); each replay adds the round's
-recorded launches to their counts (`ops.add_launches`).
+recorded launches to their counts (`ops.add_launches`). A round over an
+mp group (`shard`, a distributed.collectives.ShardGroup over NCCL) holds
+its collectives in the graph too, and the group counts them the same way.
 
 The same capture serves the back end's iterative programs (posegraph's
 LM solvers and ICP, ba.optimize_window): `repeat` replays one iteration n
@@ -28,6 +30,7 @@ shapes.
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 
 import torch
@@ -58,12 +61,16 @@ class CompiledRound:
     """`fn` captured on the card of `carry` at the shapes of (carry, group).
 
     Attributes: `launches` (kernel -> shape -> launches a replay),
-    `nodes` (graph nodes), `warmup_s` and `capture_s` (host
-    seconds of the warm-up round and of the capture with instantiation),
-    `pool_bytes` (the card memory the capture reserved: its pool, with
-    the outputs), `replays`."""
+    `collectives` (the collectives a replay makes over `shard`: "calls"
+    and output bytes by kind; {} without), `nodes` (graph nodes),
+    `warmup_s` and `capture_s` (host seconds of the warm-up round and of
+    the capture with instantiation), `pool_bytes` (the card memory the
+    capture reserved: its pool, with the outputs), `replays`. Every rank
+    of `shard` must capture its round at the same call: the warm-up's
+    first collective creates the group's communicator, and the ranks'
+    graphs hold the same collectives in the same order."""
 
-    def __init__(self, fn, carry, group):
+    def __init__(self, fn, carry, group, shard=None):
         dev = tree.leaves(carry)[0].device
         self.carry_in = _clone(carry)
         self.group_in = _clone(group)
@@ -83,6 +90,7 @@ class CompiledRound:
 
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept to count its nodes
         before = ops.captured()
+        before_coll = dict(shard.captured) if shard is not None else {}
         torch.cuda.empty_cache()  # as the capture does: what it reserves after is its pool
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
@@ -99,12 +107,18 @@ class CompiledRound:
                    if n != before[name].get(s, 0)}
             for name, rec in after.items()
         }
+        self.shard = shard
+        self.collectives = {} if shard is None else {
+            k: n - before_coll.get(k, 0) for k, n in shard.captured.items()
+            if n != before_coll.get(k, 0)}
         self.replays = 0
 
     def _replay(self):
         self.graph.replay()
         self.replays += 1
         ops.add_launches(self.launches, 1)
+        if self.shard is not None:
+            self.shard.add(self.collectives)
 
     def __call__(self, carry, group):
         """One round: (new carry, out), both fresh tensors."""
@@ -157,13 +171,23 @@ def signature(*trees):
 _programs = {}
 
 
-def compiled(key, fn, carry, group) -> CompiledRound:
+def compiled(key, fn, carry, group, shard=None) -> CompiledRound:
     """`fn` captured for `key` (at the first call with that key), the
     port's counterpart of a jax.jit cache entry."""
     r = _programs.get(key)
     if r is None:
-        r = _programs[key] = CompiledRound(fn, carry, group)
+        r = _programs[key] = CompiledRound(fn, carry, group, shard)
     return r
+
+
+def release():
+    """Drop every capture, its graph and its pool. A process group whose
+    collectives a graph holds (NCCL) is destroyed only after its graphs:
+    NCCL's teardown waits until no graph refers to the communicator."""
+    _programs.clear()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def captures(program=None):

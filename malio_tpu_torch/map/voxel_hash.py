@@ -94,33 +94,18 @@ def _num_rows(m: VoxelHashMap, shard=None) -> int:
     return R if shard is None else R * shard.size
 
 
-def _window_table(m: VoxelHashMap, b_all, shard=None):
-    """The table a window search reads and the window's row ids in it.
-    Unsharded: the map's own table (`_batch_rows`). On a map whose rows
-    are sharded over an mp group (each rank owning a contiguous range of
-    every sequence's rows): the union of every rank's window rows, filled
-    by their owners and gathered exactly, as one compact table in row
-    order, with `b_all` re-indexed into it. Its rows hold the bits of the
-    whole table's, so a search over it finds what the whole table gives."""
+def whole_map(m: VoxelHashMap, shard=None) -> VoxelHashMap:
+    """The map with every sequence's whole table, the table a window search
+    reads. On a map whose rows are sharded over an mp group (each rank
+    owning a contiguous range of every sequence's rows) the ranks' row
+    ranges are gathered in row order (one exact all-gather), the port's
+    form of GSPMD's gather over the row-sharded table: the same bits on
+    every rank as the unsharded table, and the same shape, so its rows are
+    addressed as the unsharded round addresses them. Unsharded: m."""
     if shard is None:
-        return _batch_rows(m, b_all)
-    R_loc = m.tab.shape[-3]
-    R = R_loc * shard.size
-    flat = m.tab.reshape(-1, SLOTS, 5)
-    B = flat.shape[0] // R_loc
-    off = (torch.arange(B, device=b_all.device) * R).reshape((B,) + (1,) * (b_all.dim() - 1))
-    g = b_all + off
-    used = torch.zeros(B * R, dtype=torch.bool, device=b_all.device)
-    used[g.reshape(-1)] = True
-    used = shard.union(used)
-    ids = torch.nonzero(used)[:, 0]  # host sync; `used` is the same on every rank
-    own = ids % R - shard.rank * R_loc
-    mine = (own >= 0) & (own < R_loc)
-    local = (ids // R) * R_loc + torch.clamp(own, 0, R_loc - 1)
-    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
-    table = shard.assemble(torch.where(mine[:, None, None], flat[local], zero))
-    remap = torch.cumsum(used.to(torch.int64), 0) - 1
-    return table, remap[g]
+        return m
+    parts = shard.stack(m.tab)  # (size, [B,] R / size, SLOTS, 5)
+    return m._replace(tab=parts.movedim(0, -4).reshape(*m.tab.shape[:-3], -1, SLOTS, 5))
 
 
 def _svx(keys):
@@ -197,7 +182,7 @@ def insert(m: VoxelHashMap, pts, covs, mask, shard=None) -> VoxelHashMap:
     record once (counted in n_evicted) or drops the candidate (counted in
     n_dropped).
 
-    On a row-sharded map (`shard`, see `_window_table`) every rank takes
+    On a row-sharded map (`shard`, see `whole_map`) every rank takes
     all N points, treats the rows it does not own as "no row" and writes
     its own rows; a row's decisions depend on that row's points alone, so
     each comes out as on the whole table. The drop and eviction counts are
@@ -405,14 +390,14 @@ def _dup_rows(b_all):
     return torch.any(eq & tri, dim=-1)
 
 
-def _window_rows(m: VoxelHashMap, queries, radius: int, qmask=None, shard=None):
+def _window_rows(m: VoxelHashMap, queries, radius: int, qmask=None):
     """The window of each query ([B,] Q, 3): its supervoxel rows ([B,] Q, V)
     of its own sequence's table over the ball-pruned offsets of `radius`,
     and which of them are alive (not a repeat of an earlier offset's row,
     and the query not masked off). Masked queries fetch row 0."""
     offs = _offsets(radius, m.tab.device)
     anchors = _svx(voxel_key(m, queries) - radius)
-    b_all = _hash(anchors[..., None, :] + offs, _num_rows(m, shard))  # ([B,] Q, V)
+    b_all = _hash(anchors[..., None, :] + offs, m.tab.shape[-3])  # ([B,] Q, V)
     if qmask is not None:
         b_all = torch.where(qmask[..., None], b_all, torch.zeros_like(b_all))
     alive = ~_dup_rows(b_all)
@@ -428,8 +413,7 @@ def _take(x, idx):
     return torch.gather(x, 1, idx)
 
 
-def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool = False,
-                shard=None):
+def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool = False):
     """k nearest stored points over the supervoxel window of `radius`, for
     queries ([B,] Q, 3) in their own sequence's table. The kernel path
     hands the whole window of every sequence to one launch of the fused
@@ -440,9 +424,9 @@ def _knn_window(m: VoxelHashMap, queries, k: int, radius: int, use_kernel: bool 
     dev = m.tab.device
     lead = queries.shape[:-1]
     big = torch.finfo(dtype).max
-    b_all, alive = _window_rows(m, queries, radius, shard=shard)
+    b_all, alive = _window_rows(m, queries, radius)
     V = b_all.shape[-1]
-    tab, rows = _window_table(m, b_all, shard)
+    tab, rows = _batch_rows(m, b_all)
     rows, alive, queries = rows.reshape(-1, V), alive.reshape(-1, V), queries.reshape(-1, 3)
     Q = queries.shape[0]
 
@@ -572,8 +556,8 @@ def knn_cached(
     get alone.
 
     On a row-sharded map (`shard`) each rank searches its own queries
-    (its measurement lanes): the windows read the gathered compact table
-    (`_window_table`), the escalation ranks and budget count every rank's
+    (its measurement lanes): both windows read the whole table, gathered
+    once (`whole_map`), the escalation ranks and budget count every rank's
     escalations of the sequence (an exclusive prefix of the ranks'
     counts), and n_miss is summed over the ranks."""
     assert cache_k >= accept_k, (cache_k, accept_k)
@@ -582,9 +566,10 @@ def knn_cached(
     queries = queries.to(dtype).contiguous()
     Q = queries.shape[-2]
     big = torch.finfo(dtype).max
-    b_all, alive = _window_rows(m, queries, radius, qmask, shard)
+    m = whole_map(m, shard)  # once: both windows read it
+    b_all, alive = _window_rows(m, queries, radius, qmask)
     V = b_all.shape[-1]
-    tab, rows = _window_table(m, b_all, shard)
+    tab, rows = _batch_rows(m, b_all)
     window = knn_ops.knn_window if use_kernel else knn_ops.knn_window_plain
     cache = window(tab, queries.reshape(-1, 3), rows.reshape(-1, V), alive.reshape(-1, V), cache_k)
     cache_pts, cache_covs, cache_d2 = (c.reshape(*queries.shape[:-1], *c.shape[1:]) for c in cache)
@@ -625,7 +610,7 @@ def knn_cached(
     safe = torch.clamp(inv[..., :budget], max=Q - 1)
     w_pts, w_covs, w_d2, w_cnt = _knn_window(
         m, torch.take_along_dim(queries, safe[..., None], dim=-2), cache_k, wide_radius,
-        use_kernel=use_kernel, shard=shard,
+        use_kernel=use_kernel,
     )
     r = torch.clamp(rank, max=budget - 1)
     w_pts_r = torch.take_along_dim(w_pts, r[..., None, None], dim=-3)

@@ -150,8 +150,8 @@ def make_h_share(cfg, map_state: vh.VoxelHashMap, data: ScanData, x0: st.State, 
 
     With `shard` (an mp group, distributed/collectives.py) `data`'s
     per-point fields hold this rank's measurement lanes and `map_state`
-    its rows of the map: the search reads the whole map (voxel_hash
-    `_window_table`), the validity count and the weighting laws' extremes
+    its rows of the map: the search reads the whole table (voxel_hash
+    `whole_map`, gathered once), the validity count and the weighting laws' extremes
     take every rank's lanes, and h_share returns every rank's measurement
     rows (HShareResult over all M lanes), so the localization weight and
     the update sum them in one process's order; the cache keeps this

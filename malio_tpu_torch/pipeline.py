@@ -14,8 +14,10 @@ It steps B independent sequences in lockstep when the carry and the group
 carry a leading batch axis B (the semantics of jax.vmap(pipeline.step)),
 and one sequence as the batch of one. On a card the round is compiled, as
 the reference jits it: one CUDA graph a config and shape (graph.py), which
-`scan_steps` replays round after round; `step_eager` is the same round
-launched op by op, which the CPU and the mp ranks run.
+`scan_steps` replays round after round; an mp rank's round over NCCL is
+one graph too, with its collectives inside (the reference's
+make_sharded_step). `step_eager` is the same round launched op by op,
+which the CPU and the mp ranks over gloo run.
 """
 from __future__ import annotations
 
@@ -154,12 +156,14 @@ def _lanes(shard, M: int, *xs):
     return tuple(x[:, shard.rank * n : (shard.rank + 1) * n] for x in xs)
 
 
-def _compiled_round(cfg, carry: LioCarry, group: prop.MeasureGroup) -> graph.CompiledRound:
+def _compiled_round(cfg, carry: LioCarry, group: prop.MeasureGroup,
+                    shard=None) -> graph.CompiledRound:
     """The round captured at these batched shapes on this card (captured
-    at the first call), one per (config, shapes, dtypes, card)."""
+    at the first call), one per (config, shapes, dtypes, card, mp group:
+    the ShardGroup itself, so its rank, size and backend)."""
     dev = carry.P.device
-    return graph.compiled(("round", cfg, graph.signature(carry, group)),
-                          lambda c, g: _round(cfg, c, g, dev, None), carry, group)
+    return graph.compiled(("round", cfg, graph.signature(carry, group), shard),
+                          lambda c, g: _round(cfg, c, g, dev, shard), carry, group, shard)
 
 
 def compiled_rounds():
@@ -177,20 +181,23 @@ def step(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=No
     leading B), or of one sequence (without it: the batch of one). Returns
     (new carry, StepOutput) in the form it was given.
 
-    On a card without `shard` the round is the compiled one, the port's
-    jax.jit: a CUDA graph captured at the first call for this config and
-    these shapes (graph.CompiledRound), with its inputs copied in and its
-    outputs cloned out. On the CPU, and with `shard`, it is `step_eager`,
-    whose bits the graph replays."""
+    On a card the round is the compiled one, the port's jax.jit: a CUDA
+    graph captured at the first call for this config, these shapes and
+    this `shard` (graph.CompiledRound), with its inputs copied in and its
+    outputs cloned out. An mp rank's round (`shard`) is compiled where the
+    group is `capturable` (NCCL, a card a rank: the collectives go into
+    the graph; the reference's jit of make_sharded_step). On the CPU, and
+    with a shard over gloo, whose collectives go through the host, it is
+    `step_eager`, whose bits the graph replays."""
     dev = resolve_device(device)
     _check(dev, carry, group)
-    if dev.type != "cuda" or shard is not None:
+    if dev.type != "cuda" or (shard is not None and not shard.capturable):
         return step_eager(cfg, carry, group, device=dev, shard=shard)
     if carry.P.dim() == 2:  # one sequence: a batch of one
-        new_carry, out = _compiled_round(cfg, *tree.unsqueeze((carry, group)))(
+        new_carry, out = _compiled_round(cfg, *tree.unsqueeze((carry, group)), shard)(
             *tree.unsqueeze((carry, group)))
         return tree.squeeze(new_carry), tree.squeeze(out)
-    return _compiled_round(cfg, carry, group)(carry, group)
+    return _compiled_round(cfg, carry, group, shard)(carry, group)
 
 
 def step_eager(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", shard=None):
@@ -201,7 +208,7 @@ def step_eager(cfg, carry: LioCarry, group: prop.MeasureGroup, device="cuda", sh
     it: where the reference branches (the map_init cond, the IEKF loop,
     the re-search cond, the k-NN tier) the port computes both sides for
     every sequence and selects per sequence, so the round reads nothing
-    on the host (without `shard`).
+    on the host.
 
     `shard` (an mp group, distributed/collectives.py) runs the round over
     its ranks, as the JAX package's mp mesh axis does
@@ -313,7 +320,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
     run = esekf.update_iterated(
         und.x, und.P, h_share, cache0, max_iter=cfg.max_iteration,
         limit=cfg.converge_limit, search_on_converge=not cfg.single_search,
-        Pi0=carry.Pi, shard=shard,
+        Pi0=carry.Pi,
     )
     upd = tree.where(carry.map_init, run, no_map)
 

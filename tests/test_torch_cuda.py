@@ -41,7 +41,12 @@ over four rounds, through step and through scan_steps, and each replay
 counts the launches its capture recorded; a carry kept from an earlier
 round is not overwritten by later replays; a round that reads a device
 value on the host fails to capture and pipeline.step raises; a steady
-round and a scan_steps chunk make no host sync. The back end's programs
+round and a scan_steps chunk make no host sync. An mp rank's round over
+NCCL (the sharding worker, dp1xmp2 on two cards, dp2xmp2 on four) replays
+its capture bit-equal to the eager NCCL round with the three kernels and
+its collectives in each replay and no host sync; a capture that fails on
+one rank fails the world (these skip with fewer cards than ranks). The
+back end's programs
 (posegraph.optimize, optimize_sparse, icp_point_to_plane,
 refine_loop_edge, ba.optimize_window) on small scenes: each replay of
 its capture bit-equal to its _eager version, a second call reusing the
@@ -940,3 +945,85 @@ def test_block_tridiag_refuses_what_the_kernel_does_not_take(card):
     # non-contiguous inputs are made contiguous
     Y = bt.block_tridiag_solve(D, Boff, RHS.transpose(0, 2).contiguous().transpose(0, 2))
     torch.testing.assert_close(Y, bt.block_tridiag_solve(D, Boff, RHS), rtol=0, atol=0)
+
+
+# ---- the mp round over NCCL, a card a rank: one CUDA graph with the
+# collectives inside ----
+
+NCCL_ROUNDS = 6
+NCCL_DEADLINE_S = 300
+NCCL_MESHES = {"dp1_mp2": (1, 2), "dp2_mp2": (2, 2)}
+
+
+def _cards(n):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices (NCCL takes one rank a card)")
+
+
+@pytest.fixture(scope="module")
+def nccl_inputs(tmp_path_factory):
+    """Two small flagship sequences (dist_worlds.small_config), seeds 0 and
+    1, NCCL_ROUNDS rounds each, as the sharding worker reads them."""
+    _cards(2)
+    import dist_worlds
+
+    d = tmp_path_factory.mktemp("nccl")
+    dist_worlds.make_inputs(d / "in.npz", seeds=(0, 1), rounds=NCCL_ROUNDS)
+    return d
+
+
+def _world(d, name, dp, mp, eager):
+    """The sharding worker on nccl_inputs in dp x mp processes, a card each:
+    (outputs, final carry as numpy, every rank's stats)."""
+    import dist_worlds
+    from malio_tpu_torch import interop
+    from malio_tpu_torch.distributed import sharding
+
+    cfg = dist_worlds.small_config()
+    stats = sharding.run_local(d / "in.npz", d / f"{name}.npz", dp * mp, mp,
+                               deadline_s=NCCL_DEADLINE_S, eager=eager)
+    outs, carry = sharding.load_outputs(d / f"{name}.npz",
+                                        sharding.carry_template(cfg, 2, torch.float32))
+    return outs, interop.carry_to_numpy(carry), stats
+
+
+@pytest.mark.parametrize("mesh", list(NCCL_MESHES))
+def test_mp_round_over_nccl_replays_the_eager_round(nccl_inputs, mesh):
+    """The sharding worker over NCCL through the captured round and through
+    the eager round: every output and the final carry bit-equal on every
+    rank; each rank's replay holds the three kernels (the k-NN at the base
+    window and the wide tier) and its collectives, and a steady replay
+    made no host sync (the worker's set_sync_debug_mode("error") round)."""
+    dp, mp = NCCL_MESHES[mesh]
+    _cards(dp * mp)
+    graph = _world(nccl_inputs, f"{mesh}_graph", dp, mp, eager=False)
+    eager = _world(nccl_inputs, f"{mesh}_eager", dp, mp, eager=True)
+    for f, v in eager[0].items():
+        np.testing.assert_array_equal(graph[0][f], v, err_msg=f)
+    for a, b in zip(tree.leaves(graph[1]), tree.leaves(eager[1])):
+        np.testing.assert_array_equal(a, b)
+    for s in graph[2]:
+        assert s["backend"] == "nccl" and s["path"] == "graph" and s["sync_check"], s
+        c = s["compiled"]
+        per_replay = {k: sum(v.values()) for k, v in c["launches"].items()}
+        assert per_replay["knn_window"] == 2 and per_replay["deskew"] == 1, c
+        assert per_replay["merge_rows"] == 1 and c["collectives"]["calls"] > 0, c
+        for name in ("knn_window", "deskew", "merge_rows"):  # the warm-up round and the replays
+            assert sum(s["launches"][name].values()) == (NCCL_ROUNDS + 1) * per_replay[name]
+        assert s["collectives_per_round"][1:] == [c["collectives"]["calls"]] * (NCCL_ROUNDS - 1)
+    for s in eager[2]:
+        assert s["backend"] == "nccl" and s["path"] == "eager" and not s["sync_check"], s
+
+
+def test_a_failed_mp_capture_fails_the_world(nccl_inputs, tmp_path):
+    """Process 0's round reads the host (dist_worlds.failed_capture): its
+    capture raises and the process exits; process 1, which captured and
+    waits in a replay's collective, is killed with it, well within the
+    deadline."""
+    import dist_worlds
+
+    runs, _, elapsed = dist_worlds.spawn(
+        "failed_capture", 2, dict(dir=str(tmp_path), inputs=str(nccl_inputs / "in.npz")),
+        backend="nccl", deadline_s=NCCL_DEADLINE_S)
+    assert runs[0][0] != 0 and "capture" in runs[0][1].lower(), runs[0][1][-3000:]
+    assert elapsed < NCCL_DEADLINE_S / 2, elapsed

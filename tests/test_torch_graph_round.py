@@ -19,14 +19,11 @@ package on the CPU:
 * run_sequence's output with one host copy a chunk equals the
   round-by-round path's, and launch counts added for graph replays.
 """
-import traceback
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from malio_tpu import pipeline as jpipe
 from malio_tpu import preprocess as jpre
@@ -52,34 +49,9 @@ import test_torch_batched as tb
 import test_torch_filter as tf
 import test_torch_knn as tkn
 import test_torch_pipeline as tp
+from host_reads import HostReads
 
 torch.set_num_threads(1)
-
-# operations that read a device value on the host (item, bool, int, a
-# data-dependent shape, a solver's status) or make a tensor from host data
-_HOST_OPS = {"aten::_local_scalar_dense", "aten::nonzero", "aten::bincount",
-             "aten::masked_select", "aten::_linalg_eigh", "aten::linalg_eigh", "aten::_unique2",
-             "aten::unique_dim", "aten::unique_consecutive", "aten::lift_fresh",
-             "aten::_linalg_check_errors"}
-
-
-class HostReads(TorchDispatchMode):
-    """Every host read of the operations run under it, with the port's
-    line that made it."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func._schema.name
-        bool_index = name in ("aten::index", "aten::index_put", "aten::index_put_") and any(
-            torch.is_tensor(i) and i.dtype == torch.bool for i in (args[1] or ()))
-        tensor_repeats = name == "aten::repeat_interleave" and func._overloadname != "self_int"
-        if name in _HOST_OPS or bool_index or tensor_repeats:
-            where = [f for f in traceback.extract_stack() if "malio_tpu_torch" in f.filename]
-            self.seen.append((name, f"{where[-1].filename}:{where[-1].lineno}" if where else "?"))
-        return func(*args, **(kwargs or {}))
 
 
 def test_host_reads_sees_what_it_looks_for():
