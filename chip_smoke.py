@@ -50,10 +50,13 @@ their _eager versions, and once more under
 torch.cuda.set_sync_debug_mode("error"); optimize_sparse at 2048
 keyframes timed at its first call (with the capture), at a replay and
 eagerly (all bit-equal); the block-tridiagonal kernel
-(csrc/block_tridiag.cu) held to its plain version on the last systems of
-the first relax (K = 2048, r = 385), of the solver (2048, 193) and on a
-seeded one (64, 385): the residual within 4x the plain version's, the
-column-wise difference within 1e-9 reported; timed beside the plain
+(csrc/block_tridiag.cu, block cyclic reduction: a launch a level) held
+to its plain version on the last systems of the first relax (K = 2048,
+r = 385), of the solver (2048, 193) and on a seeded one (64, 385): the
+residual within 4x the plain version's, the column-wise difference
+within 1e-9 reported, two calls bit-equal; a whole call's device time
+summed over its launches (their number checked), its replay in a CUDA
+graph, the depth floor (launches x the launch floor), beside the plain
 version and torch.linalg.solve_ex on the dense 6K x 6K system; and
 voxel_hash.knn at K = 5 through the
 kernel bit-equal to its plain route, with the kernel's K = 5 shapes
@@ -106,6 +109,9 @@ exits non-zero; the last line is the device summary.
     python3 chip_smoke.py --merge-kernel TREE           # time the merge kernel of
                                                         # the package in TREE beside
                                                         # this one's
+    python3 chip_smoke.py --tridiag-kernel TREE         # the same for the
+                                                        # block_tridiag kernel, on
+                                                        # its rows' three systems
     python3 chip_smoke.py --eigvalsh                    # the main path's ATE with
                                                         # torch.linalg.eigvalsh in
                                                         # place of linalg.eigvalsh3
@@ -172,13 +178,15 @@ SOLVER_K = 2048  # one optimize_sparse at the default capacity
 # within TRIDIAG_REL of the plain column's largest entry, and a residual
 # |T Y - RHS| no more than TRIDIAG_RESIDUAL_X times the plain version's
 # (T carries a 1e8 gauge prior: where its conditioning defeats the first,
-# the residual decides); f64 operations a step of the 6x6 chain (S, the
-# Cholesky, V, Sinv, C: five ~6^3 products) and a column a step (B^T w,
-# Sinv r forward, C y back: 3 x 36 multiply-adds)
+# the residual decides). f64 operations of csrc/block_tridiag.cu's cyclic
+# reduction, counted from its source: a kept row's 6x6 work at a level (two
+# Cholesky factorisations by downdates, 2 x 432; L^-1 on 18 columns, 18 x
+# 36; D', 36 x 26; B', 36 x 12) and a column's at a kept row (two L^-1,
+# two 6x6 products) or at an eliminated row (two products, L^-1, L^-T)
 TRIDIAG_REL = 1e-9
 TRIDIAG_RESIDUAL_X = 4.0
-TRIDIAG_CHAIN_OPS = 2000
-TRIDIAG_COLUMN_OPS = 216
+TRIDIAG_ROW_OPS = 3000
+TRIDIAG_COLUMN_OPS = 228
 TRIDIAG_SEEDED = (64, 385)  # the CPU test's shape, on seeded inputs
 # the batched cell: B flagship sequences (seeds 0 .. B-1) in lockstep through
 # batched.flagship_benchmark, and the same at B = 1 with bench.py's settings
@@ -1719,15 +1727,37 @@ def _dense_tridiag(D, Boff):
     return T.reshape(6 * K, 6 * K)
 
 
-def tridiag_row(name, args, path=None):
+def tridiag_ops(K, r):
+    """f64 operations of one cyclic-reduction solve of K rows and r columns
+    (TRIDIAG_ROW_OPS, TRIDIAG_COLUMN_OPS): each level's kept and eliminated
+    rows, then the last row."""
+    ops, n = 0, K
+    while n > 1:
+        kept, odd = (n + 1) // 2, n // 2
+        ops += kept * (TRIDIAG_ROW_OPS + TRIDIAG_COLUMN_OPS * r) + odd * TRIDIAG_COLUMN_OPS * r
+        n = kept
+    return ops + TRIDIAG_ROW_OPS + TRIDIAG_COLUMN_OPS * r
+
+
+def tridiag_bytes(K, r):
+    """D, Boff and RHS read once, Y written once."""
+    return 8 * (36 * K + 36 * (K - 1) + 2 * 6 * K * r)
+
+
+def tridiag_row(name, args, floor, path=None):
     """The block-tridiagonal kernel on args (D, Boff, RHS): held to its
     plain version (tridiag_check: the residual within TRIDIAG_RESIDUAL_X
     of the plain one's; the column-wise TRIDIAG_REL reported and, where
-    the conditioning defeats it, named), timed alone on the device
-    (CUPTI, median of 50), per wrapper call, against the plain version (CUDA
-    events around whole calls: ~90 launches a step) and against
-    torch.linalg.solve_ex on the dense 6K x 6K T (assembly excluded; None
-    where the card's memory refuses it); the bound from these inputs."""
+    the conditioning defeats it, named), two calls bit-equal; timed on the
+    device as a whole call (CUPTI: its block_tridiag kernels' events
+    summed, median of 50; the events a call must be
+    block_tridiag.device_launches; each launch's median too), per
+    wrapper call (CUDA events, 20 calls), as a captured call's replay
+    (graph_ms), against the plain version (CUDA events around whole
+    calls: ~90 launches a step) and against torch.linalg.solve_ex on the
+    dense 6K x 6K T (assembly excluded; None where the card's memory
+    refuses it); the bound from these inputs, and the depth floor: the
+    launches a call times the launch floor `floor` (ms)."""
     import torch
     from malio_tpu_torch.ops import block_tridiag as bt
 
@@ -1740,8 +1770,18 @@ def tridiag_row(name, args, path=None):
                              f"finite {chk['finite']}")
     within = chk["rel_colwise"] <= TRIDIAG_REL
     fn = lambda: bt.block_tridiag_solve(D, Boff, RHS)
-    ms = kernel_ms(fn, "block_tridiag_kernel")
+    _same(f"{name}: a second call", fn().cpu().numpy(), fn().cpu().numpy())
+    launches = bt.device_launches(K, r)
+    per = [[us for nm, us in c if "block_tridiag" in nm] for c in device_events(fn, 50)]
+    events = sorted({len(p) for p in per})
+    if events != [launches]:
+        raise AssertionError(f"{name}: {events} block_tridiag device events a call, expected "
+                             f"{launches}")
+    ms = statistics.median(sum(p) for p in per) / 1e3
+    # each launch's device µs in launch order (levels down, the top, levels up)
+    launch_us = [statistics.median(p[i] for p in per) for i in range(launches)]
     c_ms = call_ms(fn, n=20)
+    g_ms = graph_ms(fn, n=20)
     p_ms = call_ms(lambda: bt.block_tridiag_solve_plain(D, Boff, RHS), n=2 if K > 256 else 10,
                    warm=1)
     try:
@@ -1752,38 +1792,111 @@ def tridiag_row(name, args, path=None):
     except torch.cuda.OutOfMemoryError:
         l_ms = None
     torch.cuda.empty_cache()
-    nbytes = 8 * (D.numel() + Boff.numel() + 2 * RHS.numel())
-    nops = TRIDIAG_CHAIN_OPS * K + TRIDIAG_COLUMN_OPS * K * r
+    nbytes, nops = tridiag_bytes(K, r), tridiag_ops(K, r)
     b_ms, b_by = bound(nbytes, nops, F64_OPS_PER_S)
+    depth = launches * floor
     lib = f"{l_ms:.3f} ms" if l_ms is not None else "not measured (out of memory)"
     log(f"kernel {name} K={K} r={r}: residual {chk['residual']:.3g} (plain "
         f"{chk['residual_plain']:.3g}); column-wise difference {chk['rel_colwise']:.3g} of the "
         f"plain column ({'within' if within else 'OUTSIDE'} {TRIDIAG_REL}"
         f"{'' if within else ': the residual decides'}), max |difference| "
-        f"{chk['max_abs_err']:.3g}; device {ms:.4f} ms, call {c_ms:.4f} ms (plain call "
-        f"{p_ms:.2f} ms; torch.linalg.solve_ex on the dense {6 * K}^2 T {lib}); bound "
-        f"{b_ms:.5f} ms by {b_by}")
+        f"{chk['max_abs_err']:.3g}; two calls bit-equal; device {ms:.5f} ms a call summed over "
+        f"its {launches} launches, call {c_ms:.4f} ms, replayed in a graph {g_ms:.4f} ms (plain "
+        f"call {p_ms:.2f} ms; torch.linalg.solve_ex on the dense {6 * K}^2 T {lib}); bound "
+        f"{b_ms:.5f} ms by {b_by}; depth floor {launches} x {floor:.5f} = {depth:.5f} ms; "
+        f"launches µs {[round(u, 2) for u in launch_us]}")
     row = dict(name=name, route="cuda", source="malio_tpu_torch/csrc/block_tridiag.cu",
                replaces="malio_tpu/posegraph.py:243,251 (_block_tridiag_solve's two lax.scans; "
                         "not a TPU kernel)",
                shape=f"K={K} r={r}", shape_key=(K, r), counter="block_tridiag", ms=ms,
-               call_ms=c_ms, plain_ms=p_ms, plain_call_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-               bytes=nbytes, ops=nops, library_ms=l_ms, within_rel=within, **chk)
+               device_launches=launches, launch_us=launch_us, depth_floor_ms=depth,
+               call_ms=c_ms, graph_ms=g_ms, plain_ms=p_ms, plain_call_ms=p_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, ops=nops, library_ms=l_ms, within_rel=within,
+               bit_equal_calls=True, **chk)
     if path:
         row["path"] = path
     return row
 
 
-def tridiag_phase(backend_args, solver_args):
-    """block_tridiag rows: the back-end cell's first relax (K = 2048, r =
-    385), the solver cell's (2048, 193) and seeded inputs at the CPU
-    test's shape."""
+def tridiag_systems(backend_args, solver_args):
+    """The three systems of the block_tridiag rows by name: the back-end
+    cell's first relax (K = 2048, r = 385), the solver cell's (2048, 193)
+    and seeded inputs at the CPU test's shape (TRIDIAG_SEEDED)."""
     import torch
 
-    D, Boff, RHS = (torch.as_tensor(a, device="cuda") for a in tridiag_inputs(*TRIDIAG_SEEDED))
-    return [tridiag_row("block_tridiag_backend", backend_args, "backend"),
-            tridiag_row("block_tridiag_solver", solver_args, "solver"),
-            tridiag_row("block_tridiag_seeded", (D, Boff, RHS))]
+    seeded = tuple(torch.as_tensor(a, device="cuda") for a in tridiag_inputs(*TRIDIAG_SEEDED))
+    return {"block_tridiag_backend": backend_args, "block_tridiag_solver": solver_args,
+            "block_tridiag_seeded": seeded}
+
+
+def tridiag_phase(backend_args, solver_args, floor):
+    """block_tridiag rows on tridiag_systems; `floor` the launch floor (ms)."""
+    paths = {"block_tridiag_backend": "backend", "block_tridiag_solver": "solver"}
+    return [tridiag_row(name, args, floor, paths.get(name))
+            for name, args in tridiag_systems(backend_args, solver_args).items()]
+
+
+def tridiag_kernel_main(tree):
+    """Time the block_tridiag kernel of the package in `tree` (for example
+    the parent, unpacked by `git archive` into _local/parent) beside this
+    checkout's, in turns (tree, this, this, tree), on the three systems of
+    the block_tridiag rows (tridiag_systems; the back-end and solver cells
+    run first, through this checkout, to give theirs): the device time of
+    a whole call (its block_tridiag kernels' CUPTI events summed, median
+    of 50), its device events a call, and a captured call's replay
+    (graph_ms). Each tree's result is held to the plain version by the
+    residual rule."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import malio_tpu_torch  # noqa: F401  (sets the matmul precision)
+    from malio_tpu_torch.config import flagship_config
+    from malio_tpu_torch.ops import _build
+    from malio_tpu_torch.ops import block_tridiag as bt
+
+    other = _tree_module(tree, "ops.block_tridiag")
+    t0 = time.perf_counter()
+    _build.build_all(["knn_window", "deskew", "merge_rows", "block_tridiag"])
+    other._build.build_all(["block_tridiag"])
+    smi = gpu_name_and_limit()
+    log(f"{smi}; the kernels built in {time.perf_counter() - t0:.1f} s")
+    floor = launch_floor_ms()
+    _, _, backend_args = backend_phase(flagship_config())
+    _, _, solver_args = solver_phase()
+    out = dict(tree=str(tree), package=str(pathlib.Path(other.__file__).resolve().parents[1]),
+               gpu=smi, launch_floor_ms=floor)
+    for name, (D, Boff, RHS) in tridiag_systems(backend_args, solver_args).items():
+        K, r = D.shape[0], RHS.shape[-1]
+        res_plain = tridiag_residual(D, Boff, RHS, bt.block_tridiag_solve_plain(D, Boff, RHS))
+        row = dict(shape=f"K={K} r={r}", residual_plain=res_plain, tree_ms=[], this_ms=[],
+                   tree_graph_ms=[], this_graph_ms=[], tree_residual=None, this_residual=None,
+                   tree_events=None, this_events=None)
+        for who, mod in (("tree", other), ("this", bt), ("this", bt), ("tree", other)):
+            fn = lambda m=mod: m.block_tridiag_solve(D, Boff, RHS)
+            Y = fn()
+            row[f"{who}_residual"] = res = tridiag_residual(D, Boff, RHS, Y)
+            if not (bool(torch.isfinite(Y).all()) and res <= TRIDIAG_RESIDUAL_X * res_plain):
+                raise AssertionError(f"{name}: the {who} kernel's residual {res} against the "
+                                     f"plain version's {res_plain}")
+            ms, row[f"{who}_events"] = summed_device_ms(fn, "block_tridiag")
+            row[f"{who}_ms"].append(ms)
+            row[f"{who}_graph_ms"].append(graph_ms(fn, n=20))
+        row["this_launches"] = bt.device_launches(K, r)
+        row["depth_floor_ms"] = row["this_launches"] * floor
+        row["bound_ms"], row["bound_by"] = bound(tridiag_bytes(K, r), tridiag_ops(K, r),
+                                                 F64_OPS_PER_S)
+        log(f"{name} {row['shape']}: tree {row['tree_ms']} ms ({row['tree_events']} events a "
+            f"call; replayed {row['tree_graph_ms']}), this {row['this_ms']} ms "
+            f"({row['this_events']}; replayed {row['this_graph_ms']}); depth floor "
+            f"{row['depth_floor_ms']:.5f}, bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
+            f"residuals tree {row['tree_residual']:.3g}, this {row['this_residual']:.3g}, plain "
+            f"{res_plain:.3g}")
+        out[name] = row
+    out["traces"], out["trace_retakes"] = len(TRACES), [t for t in TRACES if not t["ok"]]
+    print(json.dumps(out))
+    return 0
 
 
 def batched_drive(cfg, seqs, record=None):
@@ -2066,13 +2179,20 @@ def merge_path_inputs(T, N, n_valid, seed=0):
             torch.randn(N, 5, generator=g, device="cuda"))
 
 
-def merge_device_ms(fn, n=50):
-    """Device time of one merge call (the sum of its merge_rows kernels'
-    CUPTI events, median over n calls) and its merge_rows events a call."""
+def summed_device_ms(fn, name, n=50):
+    """Device time of one call of fn: the sum of the CUPTI events of its
+    kernels whose names hold `name`, median over n calls; and the numbers
+    of such events a call (sorted, distinct)."""
     calls = device_events(fn, n)
-    per = [sum(us for nm, us in c if "merge_rows" in nm) for c in calls]
-    events = sorted({sum(1 for nm, _ in c if "merge_rows" in nm) for c in calls})
+    per = [sum(us for nm, us in c if name in nm) for c in calls]
+    events = sorted({sum(1 for nm, _ in c if name in nm) for c in calls})
     return statistics.median(per) / 1e3, events
+
+
+def merge_device_ms(fn, n=50):
+    """Device time of one merge call (its merge_rows kernels summed) and
+    its merge_rows events a call."""
+    return summed_device_ms(fn, "merge_rows", n)
 
 
 def merge_tile_edges(T, W, tw, rng, extra=200):
@@ -3105,10 +3225,11 @@ def backend_main():
     t0 = time.perf_counter()
     _build.build_all(["knn_window", "deskew", "merge_rows", "block_tridiag"])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    report, paths = dict(gpu=smi), {}
+    floor = launch_floor_ms()
+    report, paths = dict(gpu=smi, launch_floor_ms=floor), {}
     report["backend"], paths["backend"], backend_tridiag = backend_phase(flagship_config())
     report["solver"], paths["solver"], solver_tridiag = solver_phase()
-    rows = tridiag_phase(backend_tridiag, solver_tridiag)
+    rows = tridiag_phase(backend_tridiag, solver_tridiag, floor)
     for r in rows:
         key, counts = r.pop("shape_key"), r.pop("counter")
         r["launches_by_path"] = {p: c.get(counts, {}).get(key, 0) for p, c in paths.items()}
@@ -3395,7 +3516,7 @@ def main(save_stage_inputs=None):
     report["backend"], paths["backend"], backend_tridiag = backend_phase(cfg)
     done("back end")
     report["solver"], paths["solver"], solver_tridiag = solver_phase()
-    tridiag_rows = tridiag_phase(backend_tridiag, solver_tridiag)
+    tridiag_rows = tridiag_phase(backend_tridiag, solver_tridiag, floor)
     del backend_tridiag, solver_tridiag
     done("solver and block_tridiag kernel")
     report["batched"], batch_paths, batch_rows = batched_phase(floor, smi, report["profile"])
@@ -3427,7 +3548,8 @@ def main(save_stage_inputs=None):
         r["launches"] = r["launches_by_path"][r.get("path", "main")]
     keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
             "call_ms", "graph_ms", "plain_ms", "plain_call_ms", "bound_ms", "bound_by", "library_ms",
-            "library_call_ms", "bound_with_floor_ms", "launches_by_path")
+            "library_call_ms", "bound_with_floor_ms", "device_launches", "depth_floor_ms",
+            "launches_by_path")
     report.update(
         kernels=kernels, rounds=rounds, wall_s=wall, steady_scans_per_s=steady, ate_m=ate,
         map_dropped=res["map_dropped"].tolist(), nn_miss=res["nn_miss"].tolist(),
@@ -3457,6 +3579,9 @@ if __name__ == "__main__":
                     help="only time the deskew kernel of the package in TREE (--inputs optional)")
     ap.add_argument("--merge-kernel", metavar="TREE",
                     help="only time the merge kernel of the package in TREE beside this one's")
+    ap.add_argument("--tridiag-kernel", metavar="TREE",
+                    help="only time the block_tridiag kernel of the package in TREE beside "
+                         "this one's on the back-end, solver and seeded systems")
     ap.add_argument("--eigvalsh", action="store_true",
                     help="only the main path's ATE through the eager round with the closed-form "
                          "eigen-solve and with torch.linalg.eigvalsh")
@@ -3491,6 +3616,8 @@ if __name__ == "__main__":
         sys.exit(deskew_kernel_main(a.deskew_kernel, a.inputs, a.outputs))
     if a.merge_kernel:
         sys.exit(merge_kernel_main(a.merge_kernel))
+    if a.tridiag_kernel:
+        sys.exit(tridiag_kernel_main(a.tridiag_kernel))
     if a.dist_mp:
         sys.exit(dist_mp_main(a.dist_mp))
     if a.eigvalsh:

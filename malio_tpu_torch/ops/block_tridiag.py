@@ -1,16 +1,19 @@
-"""Block-tridiagonal SPD solve by block Thomas: the CUDA kernel
-`csrc/block_tridiag.cu` and its plain PyTorch version. Not a port of a TPU
-kernel: it stands for the two lax.scans of the JAX package's
-posegraph._block_tridiag_solve (malio_tpu/posegraph.py:243, :251), the
-odometry chain's exact solve inside `posegraph.optimize_sparse`.
+"""Block-tridiagonal SPD solve: the CUDA kernel `csrc/block_tridiag.cu`
+(block cyclic reduction) and its plain PyTorch version (block Thomas).
+Not a port of a TPU kernel: it stands for the two lax.scans of the JAX
+package's posegraph._block_tridiag_solve (malio_tpu/posegraph.py:243,
+:251), the odometry chain's exact solve inside `posegraph.optimize_sparse`.
 
 `block_tridiag_solve(D, Boff, RHS)` gives Y with T Y = RHS: D (K, 6, 6)
 the diagonal blocks, Boff (K-1, 6, 6) with T[i, i+1] = Boff[i], RHS
 (K, 6, r). CPU tensors run the plain version; f64 CUDA tensors launch the
 kernel; any other CUDA dtype raises. There is no other fallback. The two
-compute the same recursion but are not bit-equal: the plain version's
-6x6 products are cuBLAS calls on the card, the kernel sums each product
-in a fixed order.
+compute the same Y in different orders of elimination, so they agree to
+round-off, not bit for bit: the plain version is the reference's K-step
+recursion, the kernel eliminates odd rows level by level (ceil(log2 K)
+levels down, one row solved, the levels back up: `device_launches`
+launches a call). tests/test_torch_block_tridiag.py rehearses the
+kernel's order on the CPU.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ def block_tridiag_solve_plain(D, Boff, RHS):
     RHS (K, 6, r). A forward elimination and a back substitution, each K
     sequential 6x6 steps (the reference's two lax.scans)."""
     K = D.shape[0]
-    zero = torch.zeros_like(Boff[:1])
+    zero = torch.zeros_like(D[:1])
     B_prev = torch.cat([zero, Boff])  # row i's predecessor block
     B_cur = torch.cat([Boff, zero])
     C = torch.zeros_like(D[0])
@@ -79,15 +82,22 @@ def _lib():
         lib.block_tridiag_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
         lib.block_tridiag_scratch.restype = ctypes.c_int64
-        lib.block_tridiag_scratch.argtypes = [ctypes.c_int] * 2
+        lib.block_tridiag_scratch.argtypes = [ctypes.c_int]
         _loaded = lib
     return _loaded
+
+
+def device_launches(K: int, r: int) -> int:
+    """Device launches of one kernel call on K rows and r columns: a
+    launch a level down and up, and one for the last row; none for r = 0."""
+    return 2 * (K - 1).bit_length() + 1 if r > 0 else 0
 
 
 def block_tridiag_solve(D, Boff, RHS):
     """Same contract as `block_tridiag_solve_plain`. CUDA tensors launch
     the kernel, which takes contiguous f64 D (K, 6, 6), Boff (K-1, 6, 6)
-    and RHS (K, 6, r) on one card."""
+    and RHS (K, 6, r) on one card: `device_launches(K, r)` launches on the
+    current stream, counted here as one call."""
     args = (D, Boff, RHS)
     if all(t.device.type == "cpu" for t in args):
         return block_tridiag_solve_plain(D, Boff, RHS)
@@ -106,7 +116,7 @@ def block_tridiag_solve(D, Boff, RHS):
     D, Boff, RHS = (t.contiguous() for t in args)
     lib = _lib()
     Y = torch.empty_like(RHS)
-    scratch = torch.empty(int(lib.block_tridiag_scratch(K, r)), dtype=torch.float64, device=dev)
+    scratch = torch.empty(int(lib.block_tridiag_scratch(K)), dtype=torch.float64, device=dev)
     err = lib.block_tridiag_launch(D.data_ptr(), Boff.data_ptr(), RHS.data_ptr(), Y.data_ptr(),
                                    scratch.data_ptr(), K, r,
                                    torch.cuda.current_stream(dev).cuda_stream)

@@ -51,9 +51,11 @@ back end's programs
 refine_loop_edge, ba.optimize_window) on small scenes: each replay of
 its capture bit-equal to its _eager version, a second call reusing the
 capture, no host sync in a replay, a program with a host read failing to
-capture (it raises). The block-tridiagonal kernel against its plain
-version at (K, r) = (64, 385) and (2048, 193) (column by column within
-1e-9, the residual within 4x), and its refusals.
+capture (it raises). The block-tridiagonal kernel (block cyclic
+reduction) against its plain version at (K, r) = (64, 385), (2048, 193),
+(1, 1), (2, 7), (3, 385), (65, 129), (2047, 385) and (2048, 385) (column
+by column within 1e-9, the residual within 4x); two calls bit-equal; a
+captured call replayed bit-equal to an eager one; its refusals.
 
 Every test needs a CUDA device and skips without one. On a machine with a
 card (and without JAX, which the repo's conftest configures):
@@ -916,12 +918,16 @@ def test_a_failed_back_end_capture_raises(card):
     assert "capture raised" in r.stdout
 
 
-@pytest.mark.parametrize("K,r", [(64, 385), (2048, 193)])
+@pytest.mark.parametrize("K,r", [(64, 385), (2048, 193), (1, 1), (2, 7), (3, 385), (65, 129),
+                                 (2047, 385), (2048, 385)])
 def test_block_tridiag_kernel_matches_plain(card, K, r):
     """Column by column within 1e-9 of the plain column's largest entry,
     and a residual |T Y - RHS| within 4x the plain version's, on a seeded
     system of optimize_sparse's structure (chip_smoke.tridiag_inputs);
-    one launch counted at (K, r)."""
+    one launch counted at (K, r). The shapes reach the cyclic reduction's
+    edges: one row (the top alone), odd and non-power-of-two row counts
+    (a level whose last kept row has no right neighbour), a column block
+    of one live column."""
     from malio_tpu_torch.ops import block_tridiag as bt
 
     args = [torch.as_tensor(a, device=card) for a in chip_smoke.tridiag_inputs(K, r, seed=K)]
@@ -930,6 +936,42 @@ def test_block_tridiag_kernel_matches_plain(card, K, r):
     assert bt.block_tridiag_solve.launches_by_shape == {(K, r): 1}
     assert chk["finite"] and chk["rel_colwise"] <= chip_smoke.TRIDIAG_REL, chk
     assert chk["residual"] <= chip_smoke.TRIDIAG_RESIDUAL_X * chk["residual_plain"], chk
+
+
+def test_block_tridiag_calls_are_bit_equal(card):
+    """Fixed-order sums, no atomics: two calls on the same inputs give the
+    same bits."""
+    from malio_tpu_torch.ops import block_tridiag as bt
+
+    args = [torch.as_tensor(a, device=card) for a in chip_smoke.tridiag_inputs(2048, 385, seed=3)]
+    a, b = bt.block_tridiag_solve(*args), bt.block_tridiag_solve(*args)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+def test_block_tridiag_graph_replay_matches_an_eager_call(card):
+    """The call captured in a CUDA graph (every level's launch on the
+    capture stream) replays bit-equal to an eager call, also after new
+    values are copied into its inputs; the capture counts no launch."""
+    from malio_tpu_torch.ops import block_tridiag as bt
+
+    args = [torch.as_tensor(a, device=card) for a in chip_smoke.tridiag_inputs(300, 97, seed=5)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bt.block_tridiag_solve(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    ops.reset_launches()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = bt.block_tridiag_solve(*args)
+    assert bt.block_tridiag_solve.launches == 0
+    for seed in (5, 6):
+        new = chip_smoke.tridiag_inputs(300, 97, seed=seed)
+        for t, a in zip(args, new):
+            t.copy_(torch.as_tensor(a, device=card))
+        g.replay()
+        want = bt.block_tridiag_solve(*args)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64)), seed
 
 
 def test_block_tridiag_refuses_what_the_kernel_does_not_take(card):
