@@ -79,7 +79,7 @@ plain, bit-equal to the main path. The dataset cell writes the flagship
 sequence as a City file-player tree (io/export) and runs it through `python -m
 malio_tpu_torch.run_dataset` (TUM, ATE / RPE, PCD map read back equal)
 and DatasetPlayer (equal to the arrival-ordered feed within 1e-5 m);
-bench_torch.py's kernel times; last the distributed cell: 24 flagship
+last the distributed cell: 24 flagship
 rounds through distributed.sharding's worker in two processes sharing
 the card over gloo, dp = 2 x mp = 1 (seeds 0 and 1, each bit-equal to
 its own run) and dp = 1 x mp = 2 (within 1e-3 m of the main path, map
@@ -2890,18 +2890,6 @@ def dist_mp_kernel_inputs(m, queries, qmask, cfg, deskew_args, merge_args):
     return knn_args, desk, (tab[: tab.shape[0] // DIST_MP].contiguous(), idx, rec)
 
 
-def bench_kernels_phase(smi):
-    """bench_torch.py's insert_ms, nn_ms and iekf_ms through
-    metrics.kernel_timer at its flagship shape."""
-    import bench_torch
-
-    reset_launches()
-    times = bench_torch.kernel_times(bench_torch.bench_config())
-    counts = read_launches("bench_kernels")
-    log(f"bench_torch kernel times (kernel_timer): {times}; {smi}")
-    return times, counts
-
-
 class _OpLog:
     """A TorchFunctionMode that passes every torch operation's outputs to
     `store(key, tensor)` under key (caller file:line in the package,
@@ -3525,8 +3513,6 @@ def main(save_stage_inputs=None):
     report["dataset"], dataset_paths = dataset_phase(out_dir, smi)
     paths.update(dataset_paths)
     done("dataset")
-    report["bench_kernels"], paths["bench_kernels"] = bench_kernels_phase(smi)
-    done("bench kernel times")
     report["distributed"], dist_paths = distributed_phase(cfg, groups, res, np.diff(stamps), out_dir,
                                                           smi)
     paths.update(dist_paths)

@@ -26,6 +26,13 @@ times on the same inputs, the counterpart of their lax.scan. `compiled`
 keeps every capture by program, static arguments and shapes (`run` picks
 the capture or the eager loop), as jax.jit caches by static arguments and
 shapes.
+
+The tracer (trace.py) sees every replay: the round stamps its own stages;
+every other program gets a begin and an end stamp around its body, in the
+capture and in `run`'s eager loop, so each replay or iteration fills a
+slot of the card's ring. A capture notes the graph nodes between its
+stamps (`trace_nodes`), and each replay tells the tracer the slots it
+opens.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import time
 
 import torch
 
-from . import ops, tree
+from . import ops, trace, tree
 
 
 def _graph_nodes(g) -> int:
@@ -60,21 +67,30 @@ def _clone(t):
 class CompiledRound:
     """`fn` captured on the card of `carry` at the shapes of (carry, group).
 
+    `program`, where given, names a program whose body does not stamp
+    itself: the capture puts a begin and an end stamp of that name around
+    it (trace.py).
+
     Attributes: `launches` (kernel -> shape -> launches a replay),
     `collectives` (the collectives a replay makes over `shard`: "calls"
     and output bytes by kind; {} without), `nodes` (graph nodes),
     `warmup_s` and `capture_s` (host seconds of the warm-up round and of
     the capture with instantiation), `pool_bytes` (the card memory the
-    capture reserved: its pool, with the outputs), `replays`. Every rank
-    of `shard` must capture its round at the same call: the warm-up's
-    first collective creates the group's communicator, and the ranks'
-    graphs hold the same collectives in the same order."""
+    capture reserved: its pool, with the outputs), `replays`,
+    `trace_nodes` (program -> stage -> graph nodes between its stamps).
+    Every rank of `shard` must capture its round at the same call: the
+    warm-up's first collective creates the group's communicator, and the
+    ranks' graphs hold the same collectives in the same order."""
 
-    def __init__(self, fn, carry, group, shard=None):
+    def __init__(self, fn, carry, group, shard=None, program=None):
         dev = tree.leaves(carry)[0].device
+        self.device = dev
         self.carry_in = _clone(carry)
         self.group_in = _clone(group)
         inputs = {t.untyped_storage().data_ptr() for t in tree.leaves((self.carry_in, self.group_in))}
+        if program is not None:
+            fn = _bracketed(program, fn, dev)
+        trace.ready(dev)
 
         def body(c, g):  # outputs in storage of their own: an input passed through is copied
             return tree.map_tensors(
@@ -93,9 +109,12 @@ class CompiledRound:
         before_coll = dict(shard.captured) if shard is not None else {}
         torch.cuda.empty_cache()  # as the capture does: what it reserves after is its pool
         reserved = torch.cuda.memory_reserved(dev)
+        mark = trace.capture_mark()
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
             self.carry_out, self.out = body(self.carry_in, self.group_in)
+        stamped = trace.captured_since(mark, dev)
+        self.trace_begins, self.trace_nodes = stamped["begins"], stamped["nodes"]
         self.nodes = _graph_nodes(self.graph)
         self.graph.instantiate()
         torch.cuda.synchronize(dev)
@@ -115,6 +134,7 @@ class CompiledRound:
 
     def _replay(self):
         self.graph.replay()
+        trace.replayed(self.device, self.trace_begins)
         self.replays += 1
         ops.add_launches(self.launches, 1)
         if self.shard is not None:
@@ -161,6 +181,18 @@ class CompiledRound:
         return self._loop(carry, n, lambda k: None if k else group)
 
 
+def _bracketed(program, fn, dev):
+    """fn between a begin and an end stamp of `program` on `dev`."""
+
+    def body(c, g):
+        trace.stamp(program, 0, dev)
+        out = fn(c, g)
+        trace.stamp(program, 1, dev)
+        return out
+
+    return body
+
+
 def signature(*trees):
     """Shapes, dtypes and devices of the tensor leaves: what a capture is
     specific to."""
@@ -171,12 +203,15 @@ def signature(*trees):
 _programs = {}
 
 
-def compiled(key, fn, carry, group, shard=None) -> CompiledRound:
+def compiled(key, fn, carry, group, shard=None, stamped=False) -> CompiledRound:
     """`fn` captured for `key` (at the first call with that key), the
-    port's counterpart of a jax.jit cache entry."""
+    port's counterpart of a jax.jit cache entry. Unless `stamped` (fn
+    stamps itself, as the round does) the capture brackets fn with stamps
+    named after the program, key[0]."""
     r = _programs.get(key)
     if r is None:
-        r = _programs[key] = CompiledRound(fn, carry, group, shard)
+        r = _programs[key] = CompiledRound(fn, carry, group, shard,
+                                           program=None if stamped else key[0])
     return r
 
 
@@ -200,11 +235,14 @@ def run(key, fn, carry, group, n: int, eager: bool):
     """n steps of fn(carry, group) -> (carry, out) on one group, the carry
     threaded through: the carry after the last and the outputs stacked on
     a leading n. eager=True launches fn op by op (the CPU's way); else the
-    capture of fn for `key` replays n times."""
+    capture of fn for `key` replays n times. Either way each step lies
+    between a begin and an end stamp of the program, key[0]."""
     if not eager:
         return compiled(key, fn, carry, group).repeat(carry, group, n)
+    dev = tree.leaves(carry)[0].device
+    body = _bracketed(key[0], fn, dev)
     outs = []
     for _ in range(n):
-        carry, out = fn(carry, group)
+        carry, out = body(carry, group)
         outs.append(out)
     return carry, tree.stack(outs)

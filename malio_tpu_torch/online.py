@@ -10,6 +10,15 @@ replay path, so the trajectories of the two are the same bits on the same
 data.
 
 push_* queue work on the device and return; poll() is the only host sync.
+
+Host spans (trace.py): `online.push` around each push; on a push that
+fuses a round `online.fuse`, from the grouping decision to
+`pipeline.step` returning, with its children `online.assemble` (the
+round's padding and stacking), `online.h2d` (its upload) and
+`online.launch` (`pipeline.step`); `online.poll` with its children
+`online.fetch` (the copies to the host started) and `online.wait` (the
+synchronise). A fused round's spans carry the round id of its slot in the
+tracer's ring. The copies to and from the device count in `host_copies`.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ import collections
 import numpy as np
 import torch
 
-from . import pipeline
+from . import pipeline, trace
 from . import propagate as prop
 from . import runner
 from .device import resolve_device
@@ -57,7 +66,7 @@ class OnlineEstimator:
         self._prev_last_imu = np.zeros(7)
         self._last_group_imu = np.zeros(7)
         self._prev_base = None
-        self._pending = []  # (StepOutput on the device, base) awaiting poll
+        self._pending = []  # (StepOutput on the device, base, round id) awaiting poll
         self.n_rounds = 0
         self.n_dropped_scans = 0
         self.n_imu_regressions = 0
@@ -66,28 +75,30 @@ class OnlineEstimator:
     def push_imu(self, t, gyr, acc):
         """One IMU sample. A stamp not after the last is dropped ("imu loop
         back", laserMapping.cpp:258-262) and counted."""
-        if self._imu and t <= self._imu[-1][0]:
-            self.n_imu_regressions += 1
-            return
-        row = np.empty(7)
-        row[0] = t
-        row[1:4] = gyr
-        row[4:7] = acc
-        self._imu.append(row)
-        self._try_fuse()
+        with trace.span("online.push"):
+            if self._imu and t <= self._imu[-1][0]:
+                self.n_imu_regressions += 1
+                return
+            row = np.empty(7)
+            row[0] = t
+            row[1:4] = gyr
+            row[4:7] = acc
+            self._imu.append(row)
+            self._try_fuse()
 
     def push_scan(self, lidar, beg_t, pts, duration=None):
         """One scan of LiDAR slot `lidar`; duration defaults to the largest
         point offset (lidar_end_time, laserMapping.cpp:334)."""
-        pts = np.asarray(pts, np.float64)
-        if duration is None:
-            duration = float(pts[:, 3].max()) if pts.shape[0] else 0.0
-        p_abs = pts.copy()
-        p_abs[:, 3] += beg_t
-        self._scans[lidar].append(
-            dict(beg_t=float(beg_t), end_t=float(beg_t) + duration, pts=p_abs)
-        )
-        self._try_fuse()
+        with trace.span("online.push"):
+            pts = np.asarray(pts, np.float64)
+            if duration is None:
+                duration = float(pts[:, 3].max()) if pts.shape[0] else 0.0
+            p_abs = pts.copy()
+            p_abs[:, 3] += beg_t
+            self._scans[lidar].append(
+                dict(beg_t=float(beg_t), end_t=float(beg_t) + duration, pts=p_abs)
+            )
+            self._try_fuse()
 
     def flush(self):
         """End of stream: the wait for a scan at or past the pivot is
@@ -101,29 +112,36 @@ class OnlineEstimator:
         quat, pose_cov, iterations, n_effective, map_size. On the card
         every device-to-host copy is started (into pinned buffers) before
         one synchronise."""
-        staged = []
-        copied = False
-        for o, base in self._pending:
-            rec = {}
-            for f in _POLLED:
-                a = getattr(o, f)
-                if torch.is_tensor(a) and a.device.type == "cuda":
-                    buf = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                    buf.copy_(a, non_blocking=True)
-                    a, copied = buf, True
-                rec[f] = a
-            staged.append((rec, base))
-        if copied:
-            torch.cuda.synchronize(self.device)
-        out = []
-        for rec, base in staged:
-            h = {f: (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)) for f, a in rec.items()}
-            out.append(dict(
-                t=float(h["end_time"]) + base, pos=h["pos"], quat=h["quat"],
-                pose_cov=h["pose_cov"], iterations=int(h["iterations"]),
-                n_effective=int(h["n_effective"]), map_size=int(h["map_size"]),
-            ))
-        self._pending.clear()
+        rnd = self._pending[0][2] if self._pending else trace.next_round(self.device)
+        with trace.span("online.poll", round=rnd):
+            staged = []
+            copied = False
+            with trace.span("online.fetch"):
+                for o, base, _ in self._pending:
+                    rec = {}
+                    for f in _POLLED:
+                        a = getattr(o, f)
+                        if torch.is_tensor(a):
+                            trace.count("host_copies")
+                            if a.device.type == "cuda":
+                                buf = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                                buf.copy_(a, non_blocking=True)
+                                a, copied = buf, True
+                        rec[f] = a
+                    staged.append((rec, base))
+            if copied:
+                with trace.span("online.wait"):
+                    torch.cuda.synchronize(self.device)
+            out = []
+            for rec, base in staged:
+                h = {f: (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a))
+                     for f, a in rec.items()}
+                out.append(dict(
+                    t=float(h["end_time"]) + base, pos=h["pos"], quat=h["quat"],
+                    pose_cov=h["pose_cov"], iterations=int(h["iterations"]),
+                    n_effective=int(h["n_effective"]), map_size=int(h["map_size"]),
+                ))
+            self._pending.clear()
         return out
 
     @property
@@ -150,10 +168,18 @@ class OnlineEstimator:
             lidar_end = max(s["end_t"] for s in sel)
             if not self._imu or self._imu[-1][0] - lidar_end < cfg.sync_lookahead:
                 return  # wait for the IMU lookahead
-            group = self._pad_group(sel)
-            for b in self._scans:
-                b.popleft()
-            self._process(group)
+            if self._carry is None and not (self._n_init_groups > 0 and self._init.done):
+                group = self._pad_group(sel)  # an initialisation round: nothing fuses
+                for b in self._scans:
+                    b.popleft()
+                self._process(group)
+                continue
+            with trace.span("online.fuse", round=trace.next_round(self.device)):
+                with trace.span("online.assemble"):
+                    group = self._pad_group(sel)
+                for b in self._scans:
+                    b.popleft()
+                self._process(group)
 
     def _pad_group(self, sel):
         """io/assemble.py's padding for one round, with a persistent IMU
@@ -222,9 +248,14 @@ class OnlineEstimator:
                 return
         self._prev_last_imu = last
         self._last_group_imu = last
-        gdev, bases = runner._stack_chunk([g], self._np_dtype, self._prev_base, self.device)
+        with trace.span("online.assemble"):
+            arrays, bases = runner._chunk_arrays([g], self._np_dtype, self._prev_base)
+        with trace.span("online.h2d"):
+            gdev = runner._upload(arrays, self.device)
         self._prev_base = float(bases[0])
         group = prop.MeasureGroup(*(a[0] for a in gdev))
-        self._carry, out = pipeline.step(cfg, self._carry, group, device=self.device)
-        self._pending.append((out, float(bases[0])))
+        rnd = trace.next_round(self.device)
+        with trace.span("online.launch", round=rnd):
+            self._carry, out = pipeline.step(cfg, self._carry, group, device=self.device)
+        self._pending.append((out, float(bases[0]), rnd))
         self.n_rounds += 1

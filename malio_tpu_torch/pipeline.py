@@ -18,6 +18,12 @@ the reference jits it: one CUDA graph a config and shape (graph.py), which
 one graph too, with its collectives inside (the reference's
 make_sharded_step). `step_eager` is the same round launched op by op,
 which the CPU and the mp ranks over gloo run.
+
+The round carries 7 stamps of the tracer (trace.py), which bound its six
+stages (trace.ROUND_STAGES): undistort, downsample, compact_evict,
+uncertainty, update, insert. On a card each is a one-thread kernel in the
+stream (a node of the captured graph), on the CPU a reading of the host
+clock.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import graph
+from . import graph, trace
 from . import state as st
 from . import tree
 from . import propagate as prop
@@ -163,7 +169,8 @@ def _compiled_round(cfg, carry: LioCarry, group: prop.MeasureGroup,
     the ShardGroup itself, so its rank, size and backend)."""
     dev = carry.P.device
     return graph.compiled(("round", cfg, graph.signature(carry, group), shard),
-                          lambda c, g: _round(cfg, c, g, dev, shard), carry, group, shard)
+                          lambda c, g: _round(cfg, c, g, dev, shard), carry, group, shard,
+                          stamped=True)
 
 
 def compiled_rounds():
@@ -239,6 +246,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
     M_DS = cfg.max_points_per_scan
     M = L * M_DS
 
+    trace.stamp("round", 0, dev)  # undistort
     und = prop.undistort(
         cfg, carry.x, carry.P, carry.hist, group, carry.Q, carry.last_in,
         carry.last_imu, carry.last_end_t, carry.mean_acc_norm, shard=shard,
@@ -248,6 +256,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
         parts = shard.gather(pts_deskewed, pt_epoch, pts_mask)
         pts_deskewed, pt_epoch, pts_mask = (torch.cat(p.unbind(0), dim=2) for p in parts)
 
+    trace.stamp("round", 1, dev)  # downsample
     # ---- per-LiDAR voxel downsample (every LiDAR of every sequence in one call) ----
     ds_pts, ds_aux, ds_mask = pre.voxel_downsample(
         pts_deskewed, pt_epoch[..., None].to(dtype), pts_mask, cfg.filter_size_surf, M_DS,
@@ -258,6 +267,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
     flat_mask = ds_mask.reshape(B, M)
     flat_lidar = torch.arange(L, device=dev).repeat_interleave(M_DS).expand(B, M)
 
+    trace.stamp("round", 2, dev)  # compact_evict
     # ---- measurement-lane compaction (cfg.max_meas_points) ----
     n_meas_dropped = torch.zeros((B,), dtype=torch.int32, device=dev)
     if cfg.max_meas_points is not None and cfg.max_meas_points < M:
@@ -280,6 +290,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
     e_max = torch.where(moved[:, None], box_max, torch.full_like(box_max, big))
     map_state = vh.evict_outside(carry.map, e_min, e_max)
 
+    trace.stamp("round", 3, dev)  # uncertainty
     # ---- per-LiDAR/epoch pose uncertainty composition ----
     ext_cov = prop._ext_cov6(und.P, L).to(dtype)  # (B, L, 6, 6)
     u = unc.Pose(und.unc_q, und.unc_t, und.unc_cov)  # (B, L, E, ...)
@@ -309,6 +320,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
         epoch_count=und.epoch_count,
     )
 
+    trace.stamp("round", 4, dev)  # update
     # ---- the round's k-NN search + iterated update (where the map exists) ----
     # the update runs for every sequence and is kept where it has a map
     # (the reference's lax.cond on map_init, a select under vmap)
@@ -324,6 +336,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
     )
     upd = tree.where(carry.map_init, run, no_map)
 
+    trace.stamp("round", 5, dev)  # insert
     # ---- map insertion (map_incremental) ----
     init_col = carry.map_init[:, None]
     normal_y = torch.where(init_col, upd.cache.normal_y, torch.full((), 0.001, dtype=dtype, device=dev))
@@ -384,6 +397,7 @@ def _round(cfg, carry: LioCarry, group: prop.MeasureGroup, dev, shard):
         n_meas_dropped=n_meas_dropped,
         w_loc=upd.cache.w_loc,
     )
+    trace.stamp("round", 6, dev)
     return new_carry, out
 
 

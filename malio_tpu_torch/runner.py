@@ -4,6 +4,14 @@ round is skipped, IMU statistics accumulate until more than 10 samples,
 then the filter is seeded and the fusion step takes over: a chunk at a
 time through `pipeline.scan_steps`, or round by round where observers or
 a callback need every round.
+
+`run_sequence` records host spans (trace.py): `runner.marshal` (a chunk's
+stacking, rebasing and casts, `_chunk_arrays`), `runner.h2d` (its upload),
+`runner.scan` (a chunk through `pipeline.scan_steps`, launch to return),
+`runner.step` (a round of the partial last chunk, or of a pass with
+hooks, through `pipeline.step`) and `runner.fetch` (the copies of the
+small fields to the host, and their unpacking); each
+copy between the host's arrays and the device counts in `host_copies`.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import numpy as np
 import torch
 
 from . import state as st
-from . import pipeline
+from . import pipeline, trace
 from . import propagate as prop
 
 
@@ -152,13 +160,27 @@ def _chunk_arrays(chunk, dtype, prev_base):
     return arrays, bases
 
 
+def _upload(arrays, device):
+    """The MeasureGroup of `_chunk_arrays`' arrays on `device`, one
+    transfer a field (each counted in `host_copies`)."""
+    trace.count("host_copies", len(arrays))
+    return prop.MeasureGroup(**{k: torch.as_tensor(a).to(device) for k, a in arrays.items()})
+
+
 def _stack_chunk(chunk, dtype, prev_base, device):
     """Stack host group dicts into one batched MeasureGroup (leading axis
     K), rebased to per-group time origins in f64 before the cast, and
     moved to the device in one transfer per field.
     Returns (device group, per-group bases)."""
     arrays, bases = _chunk_arrays(chunk, dtype, prev_base)
-    return prop.MeasureGroup(**{k: torch.as_tensor(a).to(device) for k, a in arrays.items()}), bases
+    return _upload(arrays, device), bases
+
+
+def _fetch(fields):
+    """{name: numpy array} of device tensors (others as arrays), one copy
+    a tensor, counted in `host_copies`."""
+    trace.count("host_copies", sum(1 for a in fields.values() if torch.is_tensor(a)))
+    return {f: (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)) for f, a in fields.items()}
 
 
 _SMALL = ("pos", "quat", "pose_cov", "end_time", "iterations", "n_effective",
@@ -215,17 +237,24 @@ def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda"
     use_scan = callback is None and smoother is None and posegraph is None
     for c0 in range(start, len(groups), prefetch_chunk):
         chunk = groups[c0 : c0 + prefetch_chunk]
-        gdev, bases = _stack_chunk(chunk, np_dtype, prev_base, dev)
+        rnd = trace.next_round(dev)
+        with trace.span("runner.marshal", round=rnd):
+            arrays, bases = _chunk_arrays(chunk, np_dtype, prev_base)
+        with trace.span("runner.h2d", round=rnd):
+            gdev = _upload(arrays, dev)
         prev_base = float(bases[-1])
         chunk_outs = []
         if use_scan and len(chunk) == prefetch_chunk:
-            carry, stacked = pipeline.scan_steps(cfg, carry, gdev, device=dev)
-            host = {f: getattr(stacked, f).cpu().numpy() for f in _SMALL}  # one copy a field
+            with trace.span("runner.scan", round=rnd):
+                carry, stacked = pipeline.scan_steps(cfg, carry, gdev, device=dev)
+            with trace.span("runner.fetch", round=rnd):
+                host = _fetch({f: getattr(stacked, f) for f in _SMALL})  # one copy a field
             for k in range(len(chunk)):
                 chunk_outs.append(({f: host[f][k] for f in _SMALL}, float(bases[k])))
         for k in range(len(chunk_outs), len(chunk)):
             group = prop.MeasureGroup(*(a[k] for a in gdev))
-            carry, out = pipeline.step(cfg, carry, group, device=dev)
+            with trace.span("runner.step", round=trace.next_round(dev)):
+                carry, out = pipeline.step(cfg, carry, group, device=dev)
             chunk_outs.append(({f: getattr(out, f) for f in _SMALL}, float(bases[k])))
             if smoother is not None:
                 smoother.observe(out, t_base=float(bases[k]))
@@ -243,10 +272,11 @@ def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda"
         # the host reads the chunk's small fields at its end (keeps
         # per-round point clouds off the host and lets the device run
         # ahead within a chunk)
-        for o, b in chunk_outs:
-            rec = {f: (o[f].cpu().numpy() if torch.is_tensor(o[f]) else np.asarray(o[f])) for f in _SMALL}
-            rec["end_time"] = float(rec["end_time"]) + b  # absolute time in f64
-            outs.append(rec)
+        with trace.span("runner.fetch", round=rnd):
+            for o, b in chunk_outs:
+                rec = _fetch({f: o[f] for f in _SMALL})
+                rec["end_time"] = float(rec["end_time"]) + b  # absolute time in f64
+                outs.append(rec)
 
     def col(f, dt=None):
         return np.asarray([o[f] for o in outs], dt)

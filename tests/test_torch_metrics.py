@@ -1,9 +1,7 @@
 """The port's metrics.py against the JAX package's on the CPU: the JSONL
 records of MetricsLogger equal the JAX logger's for the same round values
 (all keys but compute_ms, a host time); the dashboard renders the same
-lines (title, compute and RSS lines aside); ros_pose_covariance is equal;
-kernel_timer runs on the CPU and returns a positive time and the last
-result."""
+lines (title, compute and RSS lines aside); ros_pose_covariance is equal."""
 import collections
 import json
 
@@ -74,16 +72,3 @@ def test_ros_pose_covariance_matches():
     np.testing.assert_array_equal(tmetrics.ros_pose_covariance(P), jmetrics.ros_pose_covariance(P))
     np.testing.assert_array_equal(tmetrics.ros_pose_covariance(P[0]),
                                   jmetrics.ros_pose_covariance(P[0]))
-
-
-def test_kernel_timer_on_the_cpu():
-    a = torch.randn(64, 64)
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return {"y": (x @ x, [x.sum()])}
-
-    sec, out = tmetrics.kernel_timer(fn, a, iters=4)
-    assert sec > 0 and len(calls) == 5
-    assert torch.equal(out["y"][0], a @ a)
