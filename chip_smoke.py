@@ -22,7 +22,11 @@ of the plain version run in f64, the exact deskew (for coordinates under
 origin at the scan-end position: on that run's last-round points, spline and frames, and on
 seeded inputs at the path's shape (3 x 4096 points, 64 control points),
 at the Config default (1 x 65,536, 96) and at 3 x 65,536, in both of its
-layouts, whose crossover a sweep of point counts measures. Each kernel is timed on the device alone (the CUPTI kernel
+layouts, whose crossover a sweep of point counts measures; the IMU
+mean-chain kernel (csrc/imu_propagate.cu, three launches a round) on
+seeded backward passes of City, UrbanNav and the fleet and the
+flagship's three passes against the chain run in f64 (IMU_ATOL), two
+launches bit-equal. Each kernel is timed on the device alone (the CUPTI kernel
 events of torch.profiler, median of >= 30 launches) and per wrapper call
 (CUDA events around 100 back-to-back calls). It times the whole k-NN stage
 (`voxel_hash.knn_cached`), re-runs the first rounds with the plain
@@ -157,6 +161,22 @@ ROW_BYTES = 32 * 5 * 4  # one hash-table row: 32 slots of [fp, x, y, z, cov] f32
 # (~15 each) and the basis weights; outside it only the interval test
 DESKEW_OPS_PER_POINT = 560
 DESKEW_OPS_OUTSIDE = 10
+# f32 operations per taken step of csrc/imu_propagate.cu, counted from its
+# source (an FMA two; a square root, a division and sincos one each):
+# quaternion to matrix 30, the rotated acceleration 21, the exp 16, the
+# quaternion product 28 and its normalisation 12, pos and vel 12, the biases 6
+IMU_OPS_PER_STEP = 125
+# (B, K, backward) of the imu_propagate rows: City's and UrbanNav's backward
+# passes at B = 1 (the replay cells), City's at B = 16 (the fleet), and the
+# flagship's three passes (chip_smoke's main path): backward over the
+# history, forward over the group's IMU, forward over the continuation
+IMU_SHAPES = {"imu_propagate_city": (1, 127, True), "imu_propagate_urbannav": (1, 255, True),
+              "imu_propagate_fleet": (16, 127, True),
+              "imu_propagate_flagship": (1, 63, True),
+              "imu_propagate_flagship_fwd": (1, 16, False),
+              "imu_propagate_flagship_cont": (1, 15, False)}
+# the kernel against the exact chain (the plain chain in f64): m, -, m/s
+IMU_ATOL = {"pos": 1e-4, "rot": 2e-6, "vel": 4e-5}
 # f32 operations per live lane of csrc/knn_window.cu: 3 sub, 3 mul, 2 add
 KNN_OPS_PER_LANE = 8
 SCAN_ROUNDS = 32  # two full chunks of run_sequence's 16 through pipeline.scan_steps
@@ -744,6 +764,124 @@ def saved_deskew_args(d):
     return (d["pts"], sp, d["ext_q"], d["ext_t"], d["lt_q"], d["lt_t"])
 
 
+def imu_chain_inputs(B, K, seed, backward, dev="cpu"):
+    """x0 and K propagation steps of B sequences in f32: gyros N(0, 1)
+    rad/s, a third of the steps at omega = 0 or within 1e-5 rad/s of it
+    (omega dt under so3's 1e-6 small-angle threshold), dt 2.5-10 ms
+    (negative backward), positions out to ~100 m. Valid masks by sequence
+    b % 4: random, all invalid, a leading gap, a leading and a trailing gap
+    (also the one sequence of B = 1). Returns (State, gyros, accs, dts,
+    valids)."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import state as st
+
+    rng = np.random.default_rng(seed)
+    L = 2
+    q = rng.normal(size=(B, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    g = rng.normal(size=(B, 3))
+    g *= 9.81 / np.linalg.norm(g, axis=-1, keepdims=True)
+    bg = rng.normal(size=(B, 3)) * 0.01
+    x0 = dict(pos=rng.normal(size=(B, 3)) * 30, rot=q, ext_r=np.tile([1.0, 0, 0, 0], (B, L, 1)),
+              ext_t=rng.normal(size=(B, L, 3)), vel=rng.normal(size=(B, 3)) * 8, bg=bg,
+              ba=rng.normal(size=(B, 3)) * 0.1, grav=g)
+    gyro = rng.normal(size=(B, K, 3))
+    tiny = rng.uniform(size=(B, K)) < 0.3
+    near = rng.normal(size=(B, K, 3)) * 1e-5
+    near[rng.uniform(size=(B, K)) < 0.5] = 0.0
+    gyro = np.where(tiny[..., None], bg[:, None] + near, gyro)
+    acc = rng.normal(size=(B, K, 3)) * 3 - g[:, None]
+    dt = rng.uniform(0.0025, 0.01, size=(B, K)) * (-1.0 if backward else 1.0)
+    valid = rng.uniform(size=(B, K)) < 0.7
+    for b in range(B):
+        kind = b % 4 if B > 1 else 3
+        if kind == 1:
+            valid[b] = False
+        elif kind == 2:
+            valid[b, : K // 3] = False
+        elif kind == 3:
+            valid[b, :3] = False
+            valid[b, K - K // 4:] = False
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return (st.State(**{k: f(v) for k, v in x0.items()}), f(gyro), f(acc), f(dt),
+            torch.as_tensor(valid, device=dev))
+
+
+def imu_chain_errors(got, exact):
+    """max |got - exact| of pos, rot and vel over a chain's States."""
+    return {f: max(float((getattr(g, f).double() - getattr(e, f)).abs().max())
+                   for g, e in zip(got, exact)) for f in IMU_ATOL}
+
+
+def imu_propagate_row(name, B, K, backward, floor):
+    """The mean-chain kernel at (B, K) on seeded backward- or forward-pass
+    inputs: its final, pre- and post-step states against the plain chain
+    run in f64 (the exact chain) within IMU_ATOL, which the f32 plain chain
+    meets too on the card, two launches bit-equal; timed on the device
+    (CUPTI, median of 50), per wrapper call (CUDA events), as a captured
+    call's replay, against the plain chain as the captured round ran it
+    (replayed from a CUDA graph of its ~139 operations a step); the bound
+    from these inputs and the depth floor (one launch: the launch floor
+    `floor`), and the device time a step above it."""
+    import torch
+    from malio_tpu_torch import propagate as prop
+    from malio_tpu_torch.ops import imu_propagate as imu
+
+    x0, g, a, d, v = imu_chain_inputs(B, K, seed=K + B, backward=backward, dev="cuda")
+    fn = lambda: imu.mean_chain(x0, g, a, d, v)
+    s = fn()
+    _same(f"{name}: a second launch", fn().cpu().numpy(), s.cpu().numpy())
+    got = (imu.states(x0, s[:, -1]), imu.states(x0, s[:, :-1]), imu.states(x0, s[:, 1:]))
+    exact = prop._mean_chain_plain(x0.map(torch.Tensor.double), g.double(), a.double(),
+                                   d.double(), v)
+    plain = prop._mean_chain_plain(x0, g, a, d, v)
+    err, err_plain = imu_chain_errors(got, exact), imu_chain_errors(plain, exact)
+    for f, atol in IMU_ATOL.items():
+        if not (err[f] <= atol and err_plain[f] <= atol):
+            raise AssertionError(f"{name}: |kernel - exact| {f} {err[f]}, |f32 plain - exact| "
+                                 f"{err_plain[f]}, limit {atol}")
+    ms = kernel_ms(fn, "imu_mean_chain")
+    c_ms = call_ms(fn)
+    g_ms = graph_ms(fn)
+    p_ms = graph_ms(lambda: prop._mean_chain_plain(x0, g, a, d, v), n=10)
+    taken = int(v.sum())
+    # x0 (19 floats) and the inputs (7 floats and a flag a step) read, the
+    # K + 1 states written
+    nbytes = B * (19 * 4 + K * (7 * 4 + 1) + (K + 1) * imu.STATE_WIDTH * 4)
+    nops = taken * IMU_OPS_PER_STEP
+    b_ms, b_by = bound(nbytes, nops)
+    step_us = (ms - floor) / K * 1e3
+    log(f"kernel {name} B={B} K={K} {'backward' if backward else 'forward'} ({taken} steps "
+        f"taken): max |kernel - exact| "
+        + ", ".join(f"{f} {err[f]:.3g}" for f in IMU_ATOL) + " (f32 plain "
+        + ", ".join(f"{f} {err_plain[f]:.3g}" for f in IMU_ATOL) + f"; limits {IMU_ATOL}); "
+        f"two launches bit-equal; device {ms:.5f} ms, call {c_ms:.4f} ms, replayed in a graph "
+        f"{g_ms:.4f} ms (plain chain replayed in a graph {p_ms:.3f} ms); bound {b_ms:.6f} ms by {b_by}; depth "
+        f"floor (one launch) {floor:.5f} ms; {step_us:.4f} us a step above it")
+    return dict(
+        name=name, route="cuda", source="malio_tpu_torch/csrc/imu_propagate.cu",
+        replaces="malio_tpu/propagate.py:136-142 (the propagation lax.scan's mean; not a TPU "
+                 "kernel)",
+        shape=f"B={B} K={K} {'backward' if backward else 'forward'}", shape_key=(B, K),
+        counter="imu_propagate",
+        max_abs_err=max(err.values()), errors=err, f32_plain_errors=err_plain, ms=ms,
+        call_ms=c_ms, graph_ms=g_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, bound_with_floor_ms=b_ms + floor, bytes=nbytes, ops=nops,
+        device_launches=1, depth_floor_ms=floor, step_us=step_us, library_ms=None,
+        library_call_ms=None,
+    )
+
+
+def imu_propagate_phase(floor):
+    """imu_propagate rows at IMU_SHAPES; `floor` the launch floor (ms)."""
+    return [imu_propagate_row(name, B, K, backward, floor)
+            for name, (B, K, backward) in IMU_SHAPES.items()]
+
+
 def stage_ms(vh, meas, m, queries, qmask, cfg, use_kernel):
     """The whole k-NN stage, `knn_cached` as make_h_share calls it, on the
     card: CUDA events around 20 calls (host work and the escalation
@@ -1159,7 +1297,7 @@ def reset_launches():
     ops.reset_launches()
 
 
-def read_launches(path, kernels=("knn_window", "deskew", "merge_rows")):
+def read_launches(path, kernels=("knn_window", "deskew", "merge_rows", "imu_propagate")):
     """The launches of the run just driven, by kernel and shape; fails if
     a kernel of the path was launched no time."""
     from malio_tpu_torch import ops
@@ -1525,7 +1663,8 @@ def backend_phase(cfg, seconds=BACKEND_SECONDS, dev="cuda"):
         res = runner.run_sequence(cfg, groups, dtype=torch.float32, device=dev,
                                   smoother=sm, posegraph=pg)
     wall = _ms_since(t0)
-    counts = read_launches("backend", ("knn_window", "deskew", "merge_rows", "block_tridiag"))
+    counts = read_launches("backend", ("knn_window", "deskew", "merge_rows", "imu_propagate",
+                                       "block_tridiag"))
     captures = capture_report(before)
     ate_odo = ate_rmse(res["pos"], traj.pos(res["t"]), align=False)
     ts, ps, _ = res["smoothed"]
@@ -3310,7 +3449,7 @@ def main(save_stage_inputs=None):
     report = dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    names = ["knn_window", "deskew", "merge_rows", "block_tridiag"]
+    names = ["knn_window", "deskew", "merge_rows", "block_tridiag", "imu_propagate"]
     _build.build_all(names)
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s (parallel nvcc, sm_90a)")
@@ -3360,10 +3499,13 @@ def main(save_stage_inputs=None):
     desk_by_shape = paths["main"]["deskew"]
     rounds = len(res["t"])
     # the replays of the round captured in the graph phase: each kernel once a round
-    if not n_base == n_wide == n_desk == merge.merge_rows.launches == rounds:
+    # and the mean chain once a propagation pass, three a round
+    n_imu = sum(paths["main"]["imu_propagate"].values())
+    if not (n_base == n_wide == n_desk == merge.merge_rows.launches == rounds
+            and n_imu == 3 * rounds):
         raise AssertionError(f"main path: not every kernel once a round: knn_window {by_shape}, "
-                             f"deskew {n_desk}, merge_rows {paths['main']['merge_rows']} in "
-                             f"{rounds} rounds")
+                             f"deskew {n_desk}, merge_rows {paths['main']['merge_rows']}, "
+                             f"imu_propagate {paths['main']['imu_propagate']} in {rounds} rounds")
     warm = 8
     steady = (rounds - warm) / (stamps[-1] - stamps[warm - 1])
     ate = ate_rmse(res["pos"], traj.pos(res["t"]))
@@ -3440,6 +3582,7 @@ def main(save_stage_inputs=None):
                      deskew_inputs(L, Config.max_raw_points, Config.spline_capacity, seed=1), floor),
     ]
     report["deskew_layout_sweep"] = deskew_layout_sweep()
+    imu_rows = imu_propagate_phase(floor)
     # the merge kernel: micro_r4b's shapes, the main path's last insert, a
     # world correction's re-insert of the whole map (the back end's
     # transform), the edge cases
@@ -3521,7 +3664,7 @@ def main(save_stage_inputs=None):
     done("soak")
 
     kernels = (knn_rows + desk_rows + merge_kernel_rows + batch_rows + dist_rows + soak_rows
-               + tridiag_rows)
+               + tridiag_rows + imu_rows)
     for r in kernels:
         r["floor_ms"] = floor
         if "K" in r:

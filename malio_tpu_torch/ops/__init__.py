@@ -10,10 +10,11 @@ def wrappers():
     count, also while a caller has rebound `merge.merge_rows` or
     `block_tridiag.block_tridiag_solve` to a recording or timing wrapper
     around it."""
-    from . import block_tridiag, deskew, knn, merge
+    from . import block_tridiag, deskew, imu_propagate, knn, merge
 
     return {"knn_window": knn.knn_window, "deskew": deskew.deskew_points,
-            "merge_rows": merge._counted, "block_tridiag": block_tridiag._counted}
+            "merge_rows": merge._counted, "block_tridiag": block_tridiag._counted,
+            "imu_propagate": imu_propagate.mean_chain}
 
 
 def reset_launches():

@@ -7,6 +7,8 @@ IMU_Processing.hpp:210-523), as fixed-shape batched tensor work:
   3. backward covariance/pose re-propagation over the retained history;
   4. forward propagation over the group's IMU pairs;
   5. continuation propagation on future IMU past the scan end;
+     (3-5: each pass's mean chain is one CUDA kernel launch on the card,
+     ops/imu_propagate.py);
   6. B-spline fit over the history and a deskew of every LiDAR point
      (ops/deskew.py: the CUDA kernel on the card);
   7. final partial-dt predict to the group end, pose snapped to the spline;
@@ -29,7 +31,7 @@ from . import uncertainty as unc
 from .device import resolve_device
 from .filter import dynamics
 from .linalg import mm
-from .ops import deskew as deskew_ops, kernel_enabled
+from .ops import deskew as deskew_ops, imu_propagate as imu_ops, kernel_enabled
 
 BACKWARD_MIN_INDEX = 2
 HISTORY_RETENTION = 0.2
@@ -107,25 +109,43 @@ def _ext_cov6(P, L):
     return torch.stack(out, dim=-3)
 
 
-def _batch_propagate(x0: st.State, P0, gyros, accs, dts, valids, Q):
-    """One propagation pass over K steps of B sequences (inputs (B, K, ...)):
-    a sequential mean loop, batched Jacobians, then the log-depth
-    all-prefix covariance (dynamics.parallel_covariance).
-    Returns (x_final, P_final, post-step states (B, K, ...), Ps (B, K, n, n))."""
-    n = P0.shape[-1]
-    dtype = P0.dtype
+def _mean_chain_plain(x0: st.State, gyros, accs, dts, valids):
+    """The mean chain of a pass as a loop of K steps: every step's mean is
+    computed and kept where the sequence takes the step (the reference's
+    masked lax.scan), so there is no host read. Returns (x_final, pre-step
+    states (B, K, ...), post-step states (B, K, ...))."""
     x = x0
     pres, posts = [], []
-    # every step's mean is computed and kept where the sequence takes the
-    # step (the reference's masked lax.scan): no host read
     for k in range(gyros.shape[1]):
         x2 = dynamics.step_mean(x, dynamics.Input(acc=accs[:, k], gyro=gyros[:, k]), dts[:, k])
         x2 = st.where_state(valids[:, k], x2, x)
         pres.append(x)
         posts.append(x2)
         x = x2
-    pre = tree.stack(pres, 1)
-    post = tree.stack(posts, 1)
+    return x, tree.stack(pres, 1), tree.stack(posts, 1)
+
+
+def _mean_chain(x0: st.State, gyros, accs, dts, valids):
+    """`_mean_chain_plain`'s result. A float32 state on a card runs the
+    chain as one kernel launch (ops/imu_propagate.py), whose pre- and
+    post-step states are views of the one (B, K + 1, 10) tensor it writes;
+    any other state runs the plain loop."""
+    if not kernel_enabled(None, x0.pos):
+        return _mean_chain_plain(x0, gyros, accs, dts, valids)
+    s = imu_ops.mean_chain(x0.map(torch.Tensor.contiguous), gyros.contiguous(),
+                           accs.contiguous(), dts.contiguous(), valids.contiguous())
+    return (imu_ops.states(x0, s[:, -1]), imu_ops.states(x0, s[:, :-1]),
+            imu_ops.states(x0, s[:, 1:]))
+
+
+def _batch_propagate(x0: st.State, P0, gyros, accs, dts, valids, Q):
+    """One propagation pass over K steps of B sequences (inputs (B, K, ...)):
+    the sequential mean chain, batched Jacobians, then the log-depth
+    all-prefix covariance (dynamics.parallel_covariance).
+    Returns (x_final, P_final, post-step states (B, K, ...), Ps (B, K, n, n))."""
+    n = P0.shape[-1]
+    dtype = P0.dtype
+    x, pre, post = _mean_chain(x0, gyros, accs, dts, valids)
     _, F, Fw = dynamics.transition(pre, dynamics.Input(acc=accs, gyro=gyros), dts)
     Qt = mm(mm(Fw, Q[:, None]), Fw.transpose(-1, -2))
     I = torch.eye(n, dtype=dtype, device=P0.device)

@@ -698,7 +698,7 @@ def test_compiled_round_replays_the_eager_round(card, B):
         lambda a: a[:, None], groups))
     cr = pipeline._compiled_round(cfg, batched[0], tree.index(batched[1], 0))
     assert cr.replays >= 8 and cr.nodes
-    for name in ("knn_window", "deskew", "merge_rows"):  # the round's kernels
+    for name in ("knn_window", "deskew", "merge_rows", "imu_propagate"):  # the round's kernels
         fn = ops.wrappers()[name]
         per_round = cr.launches[name]
         assert sum(per_round.values()) >= 1, name
@@ -1033,8 +1033,9 @@ def _world(d, name, dp, mp, eager):
 def test_mp_round_over_nccl_replays_the_eager_round(nccl_inputs, mesh):
     """The sharding worker over NCCL through the captured round and through
     the eager round: every output and the final carry bit-equal on every
-    rank; each rank's replay holds the three kernels (the k-NN at the base
-    window and the wide tier) and its collectives, and a steady replay
+    rank; each rank's replay holds the four kernels (the k-NN at the base
+    window and the wide tier, the mean chain once a propagation pass) and
+    its collectives, and a steady replay
     made no host sync (the worker's set_sync_debug_mode("error") round)."""
     dp, mp = NCCL_MESHES[mesh]
     _cards(dp * mp)
@@ -1050,7 +1051,9 @@ def test_mp_round_over_nccl_replays_the_eager_round(nccl_inputs, mesh):
         per_replay = {k: sum(v.values()) for k, v in c["launches"].items()}
         assert per_replay["knn_window"] == 2 and per_replay["deskew"] == 1, c
         assert per_replay["merge_rows"] == 1 and c["collectives"]["calls"] > 0, c
-        for name in ("knn_window", "deskew", "merge_rows"):  # the warm-up round and the replays
+        assert per_replay["imu_propagate"] == 3, c  # one a propagation pass
+        # the warm-up round and the replays
+        for name in ("knn_window", "deskew", "merge_rows", "imu_propagate"):
             assert sum(s["launches"][name].values()) == (NCCL_ROUNDS + 1) * per_replay[name]
         assert s["collectives_per_round"][1:] == [c["collectives"]["calls"]] * (NCCL_ROUNDS - 1)
     for s in eager[2]:

@@ -259,9 +259,13 @@ def test_run_sequence_copies_a_chunk_to_the_host_once():
 def test_replays_add_the_captured_launches():
     ops.reset_launches()
     ops.add_launches({"knn_window": {(9984, 8, 16): 1, (1024, 208, 16): 4},
-                      "merge_rows": {(1 << 16, 9984): 1}}, 3)
+                      "merge_rows": {(1 << 16, 9984): 1},
+                      "imu_propagate": {(1, 127): 1, (1, 64): 1, (1, 15): 1}}, 3)
     w = ops.wrappers()
     assert w["knn_window"].launches == 15
     assert w["knn_window"].launches_by_shape == {(9984, 8, 16): 3, (1024, 208, 16): 12}
     assert w["merge_rows"].launches == 3 and w["deskew"].launches == 0
+    assert w["imu_propagate"].launches == 9
+    assert w["imu_propagate"].launches_by_shape == {(1, 127): 3, (1, 64): 3, (1, 15): 3}
     ops.reset_launches()
+    assert w["imu_propagate"].launches == 0 and w["imu_propagate"].launches_by_shape == {}

@@ -96,8 +96,8 @@ def test_soak_run_matches_jax_at_the_soak_config():
     assert out["nn_miss_p50"] == np.median(res["nn_miss"])
     assert len(res["chunk_s"]) == res["rounds"] // CHUNK
     assert res["memory"] == []  # no card
-    assert all(c == {"knn_window": {}, "deskew": {}, "merge_rows": {}, "block_tridiag": {}}
-               for c in res["launches"])
+    assert all(c == {"knn_window": {}, "deskew": {}, "merge_rows": {}, "block_tridiag": {},
+                     "imu_propagate": {}} for c in res["launches"])
 
 
 def test_quartiles():
