@@ -236,11 +236,13 @@ def run(key, fn, carry, group, n: int, eager: bool):
     threaded through: the carry after the last and the outputs stacked on
     a leading n. eager=True launches fn op by op (the CPU's way); else the
     capture of fn for `key` replays n times. Either way each step lies
-    between a begin and an end stamp of the program, key[0]."""
+    between a begin and an end stamp of the program, key[0], unless fn
+    stamps its own stages (a program of trace.PROGRAM_STAGES)."""
+    stamped = key[0] in trace.PROGRAM_STAGES
     if not eager:
-        return compiled(key, fn, carry, group).repeat(carry, group, n)
+        return compiled(key, fn, carry, group, stamped=stamped).repeat(carry, group, n)
     dev = tree.leaves(carry)[0].device
-    body = _bracketed(key[0], fn, dev)
+    body = fn if stamped else _bracketed(key[0], fn, dev)
     outs = []
     for _ in range(n):
         carry, out = body(carry, group)

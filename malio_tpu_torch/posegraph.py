@@ -24,6 +24,18 @@ each is a CUDA graph captured at its first call (graph.run; an LM
 iteration replayed `iters` times, a whole ICP stage replayed once), and
 reads nothing on the host. The `_eager` versions run the same bodies op
 by op, as the CPU does.
+
+Tracing (trace.py): the sparse LM iteration stamps its five stages
+(trace.SPARSE_STAGES: edge blocks, assembly of T, b and the one-hot U,
+the block-tridiagonal solve, the Woodbury S solve, the LM step with its
+cost); the other programs get graph.run's begin and end stamps. The back
+end's keyframe rounds are host spans, `posegraph.observe` with children
+`posegraph.read` (the host reads of the round's pose and cloud, which wait
+for the rounds queued on the device), `posegraph.detect`, `posegraph.icp`
+(a candidate's refinement and the host read of its quality),
+`posegraph.relax` and `posegraph.feedback`, and counters
+`posegraph.keyframes`, `posegraph.candidates` (candidates refined),
+`posegraph.loops_closed`, `posegraph.relaxes` and `posegraph.corrections`.
 """
 from __future__ import annotations
 
@@ -33,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import graph
+from . import graph, trace
 from .device import resolve_device
 from .geometry import so3
 from .linalg import eigh3
@@ -199,8 +211,10 @@ def _sparse_body(gauge: int):
         def cost_fn(qq, tt):
             return _edges_cost(qq, tt, odo) + _edges_cost(qq, tt, loops)
 
+        trace.stamp("optimize_sparse", 0, dev)
         He_o, _, be_o, _ = _edge_blocks(q, t, odo)
         _, Je_l, be_l, _ = _edge_blocks(q, t, loops)
+        trace.stamp("optimize_sparse", 1, dev)
         D = segment_sum(torch.cat([He_o[:, :6, :6], He_o[:, 6:, 6:]]), torch.cat([odo.i, odo.j]), K)
         # odometry edge (i, i + 1): its off-diagonal block sits at row i
         Boff = segment_sum(
@@ -223,12 +237,17 @@ def _sparse_body(gauge: int):
         Ui = torch.einsum("ke,eab->keab", onehot_i, G[:, :6, :])
         Uj = torch.einsum("ke,eab->keab", onehot_j, G[:, 6:, :])
         U = (Ui + Uj).permute(0, 2, 1, 3).reshape(K, 6, 6 * Lcap)
-        Y = _block_tridiag_solve(D, Boff, torch.cat([b[..., None], U], dim=-1))
+        rhs = torch.cat([b[..., None], U], dim=-1)
+        trace.stamp("optimize_sparse", 2, dev)
+        Y = _block_tridiag_solve(D, Boff, rhs)
+        trace.stamp("optimize_sparse", 3, dev)
         Yb, YU = Y[..., 0], Y[..., 1:]
         UtYb = torch.einsum("kca,kc->a", U, Yb)
         S = torch.eye(6 * Lcap, dtype=dtype, device=dev) + torch.einsum("kca,kcb->ab", U, YU)
         dx = Yb - torch.einsum("kca,a->kc", YU, _solve(S, UtYb))
+        trace.stamp("optimize_sparse", 4, dev)
         q, t, lam, c_new = _lm_step(q, t, -dx, c, lam, cost_fn)
+        trace.stamp("optimize_sparse", 5, dev)
         return (q, t, lam), (c, c_new)
     return body
 
@@ -476,6 +495,13 @@ class PoseGraphBackend:
         self._round += 1
         if self._round % self.keyframe_every:
             return
+        with trace.span("posegraph.observe"):
+            self._keyframe(out, t_base)
+
+    def _keyframe(self, out, t_base):
+        """A keyframe round: the keyframe, its odometry edge, its loop
+        candidates refined, and a relax (with feedback) if one closed."""
+        trace.count("posegraph.keyframes")
         if self.count >= self.capacity:
             # decimate instead of dropping new keyframes: every other
             # keyframe merges away, odometry composes exactly, loop edges
@@ -484,46 +510,55 @@ class PoseGraphBackend:
         k = self.count
         P = self.cloud_points
         # host reads of the round's pose and cloud (the reference reads
-        # them too)
-        pts = _np(out.kf_pts)[:P]
-        msk = _np(out.kf_mask)[:P]
+        # them too): they wait for the rounds queued on the device
+        with trace.span("posegraph.read"):
+            pts = _np(out.kf_pts)[:P]
+            msk = _np(out.kf_mask)[:P]
+            quat, pos, end_time = _np(out.quat), _np(out.pos), float(out.end_time)
         if pts.shape[0] < P:
             pts = np.concatenate([pts, np.zeros((P - pts.shape[0], 3))])
             msk = np.concatenate([msk, np.zeros(P - msk.shape[0], bool)])
-        self.q[k] = _np(out.quat)
-        self.t[k] = _np(out.pos)
+        self.q[k] = quat
+        self.t[k] = pos
         self.clouds[k] = pts
         self.masks[k] = msk
-        self.times[k] = float(out.end_time) + t_base
+        self.times[k] = end_time + t_base
         self.count += 1
 
         if k > 0:
             zq, zt = relative_pose(*_h(self.q[k - 1], self.t[k - 1], self.q[k], self.t[k]))
             self.edges.append((k - 1, k, zq.numpy(), zt.numpy(), self.odom_weight, "odo"))
 
-        cands = detect_loops(self.t[: self.count], self.times[: self.count], k,
-                             self.loop_radius, self.min_time_gap)
+        with trace.span("posegraph.detect"):
+            cands = detect_loops(self.t[: self.count], self.times[: self.count], k,
+                                 self.loop_radius, self.min_time_gap)
         kw = dict(dtype=self.dtype, device=self.device)
         closed = 0
         for j in cands[: self.max_loops_per_kf]:
-            zq, zt, quality = refine_loop_edge(
-                torch.as_tensor(self.q[j], **kw), torch.as_tensor(self.t[j], **kw),
-                torch.as_tensor(self.clouds[j], **kw), torch.as_tensor(self.masks[j], device=self.device),
-                torch.as_tensor(self.q[k], **kw), torch.as_tensor(self.t[k], **kw),
-                torch.as_tensor(self.clouds[k], **kw), torch.as_tensor(self.masks[k], device=self.device),
-                cell_size=self.cell_size, min_pts=self.icp_min_pts, iters=self.icp_iters,
-            )
-            if float(quality) < self.min_quality:
+            trace.count("posegraph.candidates")
+            with trace.span("posegraph.icp"):
+                zq, zt, quality = refine_loop_edge(
+                    torch.as_tensor(self.q[j], **kw), torch.as_tensor(self.t[j], **kw),
+                    torch.as_tensor(self.clouds[j], **kw),
+                    torch.as_tensor(self.masks[j], device=self.device),
+                    torch.as_tensor(self.q[k], **kw), torch.as_tensor(self.t[k], **kw),
+                    torch.as_tensor(self.clouds[k], **kw),
+                    torch.as_tensor(self.masks[k], device=self.device),
+                    cell_size=self.cell_size, min_pts=self.icp_min_pts, iters=self.icp_iters,
+                )
+                quality = float(quality)
+            if quality < self.min_quality:
                 continue
             # a marginal edge pulls gently, a crisp one firmly
-            self.edges.append((int(j), k, _np(zq), _np(zt), self.loop_weight * float(quality),
-                               "loop"))
+            self.edges.append((int(j), k, _np(zq), _np(zt), self.loop_weight * quality, "loop"))
             self.n_loop_edges += 1
             closed += 1
         if closed:
+            trace.count("posegraph.loops_closed", closed)
             self.relax()
             if self.feedback:
-                self._apply_feedback(k)
+                with trace.span("posegraph.feedback"):
+                    self._apply_feedback(k)
 
     def _apply_feedback(self, k):
         """Stage dT = T_opt[k] o T_odom[k]^-1 (the world-frame left delta at
@@ -535,6 +570,7 @@ class PoseGraphBackend:
         self.q[:n] = self.opt_q[:n]
         self.t[:n] = self.opt_t[:n]
         self.n_feedback += 1
+        trace.count("posegraph.corrections")
         # compose with a correction not yet taken: dT_new o dT_old
         if self._pending is not None:
             pq, pt = self._pending
@@ -639,17 +675,19 @@ class PoseGraphBackend:
         (damped identity blocks; the gauge prior pins node 0). Returns
         (final cost, initial cost)."""
         K = self.capacity
-        odo, loops = self._edge_sets()
-        kw = dict(dtype=self.dtype, device=self.device)
-        q_opt, t_opt, c1, c0 = optimize_sparse(
-            torch.as_tensor(self.q[:K], **kw), torch.as_tensor(self.t[:K], **kw), odo, loops,
-            iters=self.relax_iters,
-        )
-        self.opt_q = q_opt.cpu().numpy().copy()
-        self.opt_t = t_opt.cpu().numpy().copy()
-        # nodes the optimiser saw live: later keyframes chain onto them
-        self.relaxed_count = self.count
-        return float(c1), float(c0)
+        trace.count("posegraph.relaxes")
+        with trace.span("posegraph.relax"):
+            odo, loops = self._edge_sets()
+            kw = dict(dtype=self.dtype, device=self.device)
+            q_opt, t_opt, c1, c0 = optimize_sparse(
+                torch.as_tensor(self.q[:K], **kw), torch.as_tensor(self.t[:K], **kw), odo, loops,
+                iters=self.relax_iters,
+            )
+            self.opt_q = q_opt.cpu().numpy().copy()
+            self.opt_t = t_opt.cpu().numpy().copy()
+            # nodes the optimiser saw live: later keyframes chain onto them
+            self.relaxed_count = self.count
+            return float(c1), float(c0)
 
     def trajectory(self):
         """Graph-optimised keyframe trajectory (t, pos, quat). Keyframes

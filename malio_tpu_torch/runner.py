@@ -9,8 +9,10 @@ a callback need every round.
 stacking, rebasing and casts, `_chunk_arrays`), `runner.h2d` (its upload),
 `runner.scan` (a chunk through `pipeline.scan_steps`, launch to return),
 `runner.step` (a round of the partial last chunk, or of a pass with
-hooks, through `pipeline.step`) and `runner.fetch` (the copies of the
-small fields to the host, and their unpacking); each
+hooks, through `pipeline.step`), `runner.correction` (a posegraph
+correction applied to the carry, `pipeline.apply_world_correction`) and
+`runner.fetch` (the copies of the small fields to the host, and their
+unpacking); each
 copy between the host's arrays and the device counts in `host_copies`.
 """
 from __future__ import annotations
@@ -264,9 +266,10 @@ def run_sequence(cfg, groups: Iterable[dict], dtype=torch.float32, device="cuda"
                 if corr is not None:
                     # loop closure: re-anchor state, P, history, map and
                     # box onto the graph-corrected frame
-                    dq, dtv = (torch.as_tensor(np.asarray(c), dtype=dtype, device=dev)
-                               for c in corr)
-                    carry = pipeline.apply_world_correction(cfg, carry, dq, dtv)
+                    with trace.span("runner.correction"):
+                        dq, dtv = (torch.as_tensor(np.asarray(c), dtype=dtype, device=dev)
+                                   for c in corr)
+                        carry = pipeline.apply_world_correction(cfg, carry, dq, dtv)
             if callback is not None:
                 callback(carry, out, float(bases[k]))
         # the host reads the chunk's small fields at its end (keeps

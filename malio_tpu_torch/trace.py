@@ -10,9 +10,10 @@ it is a node of the CUDA graph, which writes a new slot at every replay
 (the slot comes from a counter on the card; nothing is read on the host).
 On the CPU a stamp records the host clock into a ring of its own. The
 fusion round (`pipeline._round`) holds 7 stamps that bound its six stages
-(`ROUND_STAGES`); `graph.CompiledRound` and `graph.run` put a begin and an
-end stamp around every other program (posegraph's LM iteration and ICP,
-`ba.optimize_window`). A ring holds the last `SLOTS` slots. While a graph
+(`ROUND_STAGES`) and posegraph's sparse LM iteration 6 that bound its five
+(`SPARSE_STAGES`); `graph.CompiledRound` and `graph.run` put a begin and an
+end stamp around every other program (posegraph's dense LM iteration and
+ICP, `ba.optimize_window`). A ring holds the last `SLOTS` slots. While a graph
 is captured each stamp also notes the capturing graph's node count, so a
 stage's nodes are known at no cost at replay (`captures`, and the counters
 `graph_nodes.<program>.<stage>`).
@@ -57,6 +58,9 @@ PROGRAMS = 32  # programs a card's ring can tell apart
 SPANS = 1 << 16
 COUNTS = 1 << 16
 ROUND_STAGES = ("undistort", "downsample", "compact_evict", "uncertainty", "update", "insert")
+# posegraph.optimize_sparse's LM iteration, stamped inside its body
+SPARSE_STAGES = ("edge_blocks", "assembly", "tridiag", "woodbury", "lm_step")
+PROGRAM_STAGES = {"round": ROUND_STAGES, "optimize_sparse": SPARSE_STAGES}
 
 _clock = time.perf_counter_ns
 
@@ -139,9 +143,10 @@ program_id("round")
 
 
 def stages(program):
-    """The stages between a program's stamps: the round's six, else the
-    program itself (a begin and an end stamp)."""
-    return ROUND_STAGES if program == "round" else (program,)
+    """The stages between a program's stamps: the round's six, the sparse
+    LM iteration's five, else the program itself (a begin and an end
+    stamp)."""
+    return PROGRAM_STAGES.get(program, (program,))
 
 
 def ready(device):

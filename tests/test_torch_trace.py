@@ -272,6 +272,114 @@ def test_poll_counts_its_copies_and_a_live_round_lines_up(seq):
     assert sp["name"][np.isin(sp["id"], sp["parent"][fuse])][0] == "online.push"
 
 
+def _sparse_graph(K=8):
+    """A drifted chain of K poses with one loop edge (posegraph's EdgeSets)."""
+    from malio_tpu_torch import posegraph as pg
+
+    rng = np.random.default_rng(5)
+    t = torch.as_tensor(np.cumsum(rng.normal(size=(K, 3)), axis=0))
+    q = torch.as_tensor(np.tile([1.0, 0, 0, 0], (K, 1)))
+    b = pg.PoseGraphBackend(capacity=K, cloud_points=1, device="cpu")
+    ident = (np.array([1.0, 0, 0, 0]),)
+    odo = [(i, i + 1, *ident, np.array([1.0, 0, 0]), 1.0, "odo") for i in range(K - 1)]
+    loops = [(0, K - 1, *ident, np.array([float(K - 1), 0, 0]), 3.0, "loop")]
+    return q, t, b._pack_edges(odo, K - 1), b._pack_edges(loops, 2)
+
+
+def test_sparse_stage_stamps_tile_one_eager_iteration():
+    from malio_tpu_torch import posegraph as pg
+
+    q, t, odo, loops = _sparse_graph()
+    n0 = trace.next_round(CPU)
+    t0 = time.perf_counter_ns()
+    pg.optimize_sparse_eager(q, t, odo, loops, iters=1)
+    t1 = time.perf_counter_ns()
+    s, ts = _slots("optimize_sparse")
+    assert trace.next_round(CPU) == n0 + 1 and s[-1] == n0
+    assert trace.stages("optimize_sparse") == trace.SPARSE_STAGES
+    n = len(trace.SPARSE_STAGES) + 1
+    row = ts[-1]
+    assert (row[n:] == -1).all()  # 6 stamps of COLS
+    stages = np.diff(row[:n])
+    assert t0 <= row[0] and row[n - 1] <= t1
+    assert (stages >= 0).all() and stages.sum() == row[n - 1] - row[0]
+    assert stages[trace.SPARSE_STAGES.index("edge_blocks")] > 0
+
+
+class _KeyframeOut:
+    """The fields of a round's output the back end reads."""
+
+    def __init__(self, pos, end_time, P=4):
+        self.pos = torch.as_tensor(pos, dtype=torch.float64)
+        self.quat = torch.tensor([1.0, 0, 0, 0], dtype=torch.float64)
+        self.end_time = torch.tensor(end_time, dtype=torch.float64)
+        self.kf_pts = torch.zeros((P, 3))
+        self.kf_mask = torch.ones(P, dtype=torch.bool)
+
+
+def test_posegraph_spans_and_counters(monkeypatch):
+    """Eight keyframes on a 1 m circle, a loop candidate from the fourth on;
+    the ICP stubbed to accept every candidate exactly (the spans, not the
+    ICP, are under test)."""
+    from malio_tpu_torch import posegraph as pg
+
+    def refine(q_i, t_i, c_i, m_i, q_j, t_j, c_j, m_j, **kw):
+        zq, zt = pg.relative_pose(q_i, t_i, q_j, t_j)
+        return zq, zt, torch.tensor(1.0, dtype=torch.float64)
+
+    monkeypatch.setattr(pg, "refine_loop_edge", refine)
+    names = ("keyframes", "candidates", "loops_closed", "relaxes", "corrections")
+    c0 = {n: trace.counter(f"posegraph.{n}") for n in names}
+    b = pg.PoseGraphBackend(capacity=16, loop_capacity=4, keyframe_every=2, cloud_points=4,
+                            loop_radius=1.5, min_time_gap=1.0, feedback=True, device="cpu")
+    first = trace._spans[0]
+    for r in range(16):
+        th = 2 * np.pi * r / 8
+        b.observe(_KeyframeOut([np.cos(th), np.sin(th), 0.0], 0.5 * r))
+        b.take_correction()
+    counted = {n: trace.counter(f"posegraph.{n}") - c0[n] for n in names}
+    assert counted["keyframes"] == 8
+    assert counted["candidates"] >= 1 and counted["loops_closed"] == counted["candidates"]
+    assert counted["relaxes"] == counted["corrections"] == b.n_feedback >= 1
+    sp = trace.snapshot()["spans"]
+    keep = sp["id"] >= first
+    sp = {k: v[keep] for k, v in sp.items()}
+    observe = sp["id"][sp["name"] == "posegraph.observe"]
+    assert len(observe) == 8  # one a keyframe round, none between
+    for child, n in (("read", 8), ("detect", 8), ("icp", counted["candidates"]),
+                     ("relax", counted["relaxes"]), ("feedback", counted["corrections"])):
+        k = sp["name"] == f"posegraph.{child}"
+        assert k.sum() == n, child
+        assert np.isin(sp["parent"][k], observe).all(), child
+
+
+def test_run_sequence_spans_the_correction(seq):
+    cfg, _, _, groups = seq
+
+    class Stub:
+        rounds = 0
+
+        def observe(self, out, t_base=0.0):
+            self.rounds += 1
+
+        def take_correction(self):
+            if self.rounds == 3:
+                return np.array([1.0, 0, 0, 0]), np.array([0.1, 0.0, 0.0])
+            return None
+
+        def trajectory(self):
+            return np.zeros(0), np.zeros((0, 3)), np.zeros((0, 4))
+
+    first = trace._spans[0]
+    runner.run_sequence(cfg, groups, dtype=torch.float32, device="cpu", posegraph=Stub())
+    sp = trace.snapshot()["spans"]
+    names = list(sp["name"][sp["id"] >= first])
+    assert names.count("runner.correction") == 1
+    assert "runner.scan" not in names  # an observer: round by round
+    k = names.index("runner.correction")
+    assert names[k - 1] == "runner.step"
+
+
 # ---- on a card --------------------------------------------------------------
 
 cuda = pytest.mark.cuda
