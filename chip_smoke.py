@@ -26,7 +26,11 @@ layouts, whose crossover a sweep of point counts measures; the IMU
 mean-chain kernel (csrc/imu_propagate.cu, three launches a round) on
 seeded backward passes of City, UrbanNav and the fleet and the
 flagship's three passes against the chain run in f64 (IMU_ATOL), two
-launches bit-equal. Each kernel is timed on the device alone (the CUPTI kernel
+launches bit-equal; the voxel downsample's segment-sum kernel
+(csrc/voxel_sums.cu, one launch a round) on seeded scans at City's,
+UrbanNav's, the fleet's and the flagship's widths, bit-equal to its plain
+version (three torch.segment_reduce sums, timed apart as `library_ms`)
+and to a second launch, with the whole downsample through each. Each kernel is timed on the device alone (the CUPTI kernel
 events of torch.profiler, median of >= 30 launches) and per wrapper call
 (CUDA events around 100 back-to-back calls). It times the whole k-NN stage
 (`voxel_hash.knn_cached`), re-runs the first rounds with the plain
@@ -177,6 +181,14 @@ IMU_SHAPES = {"imu_propagate_city": (1, 127, True), "imu_propagate_urbannav": (1
               "imu_propagate_flagship_cont": (1, 15, False)}
 # the kernel against the exact chain (the plain chain in f64): m, -, m/s
 IMU_ATOL = {"pos": 1e-4, "rot": 2e-6, "vel": 4e-5}
+# (valid points a LiDAR, raw slots P, out_cap) of the voxel_sums rows: City's
+# and UrbanNav's rounds (the replay cells, B = 1), City's at B = 16 (the
+# fleet) and the flagship's (chip_smoke's paths, whose launches they count)
+VOXEL_SHAPES = {"voxel_sums_city": ((16384, 6000, 6000), 65536, 16384),
+                "voxel_sums_urbannav": ((17500, 7500), 65536, 16384),
+                "voxel_sums_fleet": ((16384, 6000, 6000) * 16, 65536, 16384),
+                "voxel_sums_flagship": ((4096, 4096, 4096), 4096, 4096)}
+VOXEL_SIZE = 0.5  # filter_size_surf of City and UrbanNav
 # f32 operations per live lane of csrc/knn_window.cu: 3 sub, 3 mul, 2 add
 KNN_OPS_PER_LANE = 8
 SCAN_ROUNDS = 32  # two full chunks of run_sequence's 16 through pipeline.scan_steps
@@ -882,6 +894,115 @@ def imu_propagate_phase(floor):
             for name, (B, K, backward) in IMU_SHAPES.items()]
 
 
+def voxel_scan_inputs(counts, P, seed, dev="cpu", dtype=None, shuffle=False):
+    """G = len(counts) LiDAR scans of P raw slots, counts[g] of them valid:
+    points 1.5-35 m from the scan's sensor, log-uniform in range (dense
+    near the sensor, as a scan is), elevations -0.4 to 0.3 rad, the sensor
+    anywhere within 100 m of the origin; aux one column of epoch indices
+    0-31; the masked slots finite junk, after the valid ones or (shuffle)
+    anywhere in the scan. Returns (pts (G, P, 3), aux (G, P, 1), mask
+    (G, P)) in dtype (float32 by default)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    G = len(counts)
+    az = rng.uniform(0, 2 * np.pi, size=(G, P))
+    el = rng.uniform(-0.4, 0.3, size=(G, P))
+    r = np.exp(rng.uniform(np.log(1.5), np.log(35.0), size=(G, P)))
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], -1)
+    pts = rng.uniform(-100, 100, size=(G, 1, 3)) + r[..., None] * d
+    mask = np.arange(P)[None] < np.asarray(counts)[:, None]
+    if shuffle:
+        mask = rng.permuted(mask, axis=1)
+    pts = np.where(mask[..., None], pts, rng.normal(size=(G, P, 3)) * 50)
+    aux = rng.integers(0, 32, size=(G, P, 1)).astype(np.float64)
+    dtype = dtype or torch.float32
+    return (torch.as_tensor(pts, dtype=dtype, device=dev),
+            torch.as_tensor(aux, dtype=dtype, device=dev), torch.as_tensor(mask, device=dev))
+
+
+def voxel_sums_bytes(mask, order, seg, out_cap, itemsize, A):
+    """Bytes the sums need: each kept row (valid, in a segment below
+    out_cap) read once, its index, segment id, mask byte and 3 + A
+    numbers; every output slot written once, 3 + A numbers and a flag. The
+    masked rows are not counted: the result needs none of them."""
+    G = mask.shape[0]
+    kept = int((mask.reshape(-1)[order].reshape(G, -1) & (seg < out_cap)).sum())
+    return kept * (8 + 8 + 1 + itemsize * (3 + A)) + G * out_cap * (itemsize * (3 + A) + 1)
+
+
+def voxel_sums_row(name, counts, P, C, floor):
+    """The segment-sum kernel at (G, P, out_cap) on seeded scans with
+    `counts` valid points: bit-equal to the plain version (centroids, aux
+    means, valid) and to a second launch; timed on the device (CUPTI,
+    median of 50), per wrapper call (CUDA events), as a captured call's
+    replay; the plain version's device time and the three
+    torch.segment_reduce sums in it (`library_ms`, what the port no longer
+    runs on the card); the whole downsample (sort and sums) through the
+    kernel and through the plain version; the bound from voxel_sums_bytes
+    and the depth floor (one launch: the launch floor `floor`)."""
+    import numpy as np
+    import torch
+    from malio_tpu_torch import preprocess as pre
+    from malio_tpu_torch.ops import voxel_sums as vs
+
+    G = len(counts)
+    pts, aux, mask = voxel_scan_inputs(counts, P, seed=G + P, dev="cuda")
+    order, seg = pre.voxel_sort(pts, mask, VOXEL_SIZE)
+    fn = lambda: vs.voxel_sums(pts, aux, mask, order, seg, C)
+    plain = lambda: pre.voxel_sums_plain(pts, aux, mask, order, seg, C)
+    got = fn()
+    for f, a, b, c in zip(("centroids", "aux", "valid"), got, plain(), fn()):
+        _same(f"{name} {f}: kernel against the plain version", a.cpu().numpy(), b.cpu().numpy())
+        _same(f"{name} {f}: a second launch", c.cpu().numpy(), a.cpu().numpy())
+    ms = kernel_ms(fn, "voxel_sums")
+    c_ms = call_ms(fn)
+    g_ms = graph_ms(fn)
+    p_ms, p_ops = device_ms(plain)
+    # the plain version's three segment sums alone, on its own operands
+    gid = torch.arange(G, device="cuda")[:, None]
+    flat = (torch.clamp(seg, max=C) + gid * (C + 1)).reshape(-1)
+    lengths = torch.zeros(G * (C + 1), dtype=torch.int64, device="cuda").scatter_add_(
+        0, flat, torch.ones_like(flat))
+    ones = mask.reshape(-1)[order].to(pts.dtype)[:, None]
+    operands = (ones, pts.reshape(-1, 3)[order] * ones, aux.reshape(G * P, -1)[order] * ones)
+    l_ms, _ = device_ms(lambda: [torch.segment_reduce(x, "sum", lengths=lengths, axis=0,
+                                                      unsafe=True, initial=0) for x in operands])
+    ds_ms, ds_ops = device_ms(lambda: pre.voxel_downsample(pts, aux, mask, VOXEL_SIZE, C))
+    dsp_ms, dsp_ops = device_ms(
+        lambda: pre.voxel_sums_plain(pts, aux, mask, *pre.voxel_sort(pts, mask, VOXEL_SIZE), C))
+    kept = (seg < C) & mask.reshape(-1)[order].reshape(G, P)
+    sizes = np.bincount((seg + gid * (C + 1))[kept].cpu().numpy())
+    nbytes = voxel_sums_bytes(mask, order, seg, C, pts.element_size(), aux.shape[-1])
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"kernel {name} G={G} P={P} out_cap={C} ({int(kept.sum())} kept rows in "
+        f"{int((sizes > 0).sum())} voxels, the largest {int(sizes.max())} rows): bit-equal to "
+        f"the plain version and a second launch; device {ms:.5f} ms, call {c_ms:.4f} ms, replayed "
+        f"in a graph {g_ms:.4f} ms; plain version {p_ms:.4f} ms in {p_ops} device operations, its "
+        f"three segment_reduce {l_ms:.4f} ms; the downsample {ds_ms:.4f} ms in {ds_ops} "
+        f"operations (plain {dsp_ms:.4f} ms in {dsp_ops}); bound {b_ms:.6f} ms by {b_by} "
+        f"({nbytes} B), {b_ms + floor:.5f} ms with the launch floor")
+    return dict(
+        name=name, route="cuda", source="malio_tpu_torch/csrc/voxel_sums.cu",
+        replaces="malio_tpu/preprocess.py:50-60 (voxel_downsample's scatter-adds; not a TPU "
+                 "kernel)",
+        shape=f"G={G} P={P} out_cap={C} valid={list(counts[:3])}", shape_key=(G, P, C),
+        counter="voxel_sums", max_abs_err=0.0, ms=ms, call_ms=c_ms, graph_ms=g_ms,
+        plain_ms=p_ms, plain_ops=p_ops, library_ms=l_ms, library_call_ms=None, bound_ms=b_ms,
+        bound_by=b_by, bound_with_floor_ms=b_ms + floor, bytes=nbytes, device_launches=1,
+        depth_floor_ms=floor, downsample_ms=ds_ms, downsample_ops=ds_ops,
+        downsample_plain_ms=dsp_ms, downsample_plain_ops=dsp_ops, kept_rows=int(kept.sum()),
+        largest_voxel_rows=int(sizes.max()),
+    )
+
+
+def voxel_sums_phase(floor):
+    """voxel_sums rows at VOXEL_SHAPES; `floor` the launch floor (ms)."""
+    return [voxel_sums_row(name, counts, P, C, floor)
+            for name, (counts, P, C) in VOXEL_SHAPES.items()]
+
+
 def stage_ms(vh, meas, m, queries, qmask, cfg, use_kernel):
     """The whole k-NN stage, `knn_cached` as make_h_share calls it, on the
     card: CUDA events around 20 calls (host work and the escalation
@@ -1297,7 +1418,8 @@ def reset_launches():
     ops.reset_launches()
 
 
-def read_launches(path, kernels=("knn_window", "deskew", "merge_rows", "imu_propagate")):
+def read_launches(path, kernels=("knn_window", "deskew", "merge_rows", "imu_propagate",
+                                  "voxel_sums")):
     """The launches of the run just driven, by kernel and shape; fails if
     a kernel of the path was launched no time."""
     from malio_tpu_torch import ops
@@ -1664,7 +1786,7 @@ def backend_phase(cfg, seconds=BACKEND_SECONDS, dev="cuda"):
                                   smoother=sm, posegraph=pg)
     wall = _ms_since(t0)
     counts = read_launches("backend", ("knn_window", "deskew", "merge_rows", "imu_propagate",
-                                       "block_tridiag"))
+                                       "voxel_sums", "block_tridiag"))
     captures = capture_report(before)
     ate_odo = ate_rmse(res["pos"], traj.pos(res["t"]), align=False)
     ts, ps, _ = res["smoothed"]
@@ -2786,7 +2908,7 @@ def _dist_launches(stats):
 def check_dist_launches(label, stats):
     """Fails unless every rank launched each kernel of the path."""
     for s in stats:
-        for name in ("knn_window", "deskew", "merge_rows"):
+        for name in ("knn_window", "deskew", "merge_rows", "voxel_sums"):
             if not s["launches"][name]:
                 raise AssertionError(f"{label} rank {s['rank']}: kernel {name} was launched no "
                                      f"time ({s['launches']})")
@@ -3282,10 +3404,12 @@ def soak_phase(floor, dev="cuda"):
         per = dict(knn_window=sum(n for (q, v, k), n in by_kernel["knn_window"].items()
                                   if v == v_base),
                    deskew=sum(by_kernel["deskew"].values()),
-                   merge_rows=sum(by_kernel["merge_rows"].values()))
+                   merge_rows=sum(by_kernel["merge_rows"].values()),
+                   voxel_sums=sum(by_kernel["voxel_sums"].values()))
         if any(n != res["chunk"] for n in per.values()):
             raise AssertionError(f"soak: chunk {c} of {res['chunk']} rounds launched {per} "
-                                 f"(base-window k-NN, deskew, merge), not one each a round")
+                                 f"(base-window k-NN, deskew, merge, voxel sums), not one each "
+                                 f"a round")
     if not out["finite"]:
         raise AssertionError(f"soak: non-finite trajectory or P ({out['n_nonfinite_rounds']} "
                              f"rounds, P_max {out['P_max']})")
@@ -3449,7 +3573,8 @@ def main(save_stage_inputs=None):
     report = dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    names = ["knn_window", "deskew", "merge_rows", "block_tridiag", "imu_propagate"]
+    names = ["knn_window", "deskew", "merge_rows", "block_tridiag", "imu_propagate",
+             "voxel_sums"]
     _build.build_all(names)
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s (parallel nvcc, sm_90a)")
@@ -3501,11 +3626,13 @@ def main(save_stage_inputs=None):
     # the replays of the round captured in the graph phase: each kernel once a round
     # and the mean chain once a propagation pass, three a round
     n_imu = sum(paths["main"]["imu_propagate"].values())
-    if not (n_base == n_wide == n_desk == merge.merge_rows.launches == rounds
+    n_vox = sum(paths["main"]["voxel_sums"].values())
+    if not (n_base == n_wide == n_desk == merge.merge_rows.launches == n_vox == rounds
             and n_imu == 3 * rounds):
         raise AssertionError(f"main path: not every kernel once a round: knn_window {by_shape}, "
                              f"deskew {n_desk}, merge_rows {paths['main']['merge_rows']}, "
-                             f"imu_propagate {paths['main']['imu_propagate']} in {rounds} rounds")
+                             f"imu_propagate {paths['main']['imu_propagate']}, voxel_sums "
+                             f"{paths['main']['voxel_sums']} in {rounds} rounds")
     warm = 8
     steady = (rounds - warm) / (stamps[-1] - stamps[warm - 1])
     ate = ate_rmse(res["pos"], traj.pos(res["t"]))
@@ -3583,6 +3710,7 @@ def main(save_stage_inputs=None):
     ]
     report["deskew_layout_sweep"] = deskew_layout_sweep()
     imu_rows = imu_propagate_phase(floor)
+    voxel_rows = voxel_sums_phase(floor)
     # the merge kernel: micro_r4b's shapes, the main path's last insert, a
     # world correction's re-insert of the whole map (the back end's
     # transform), the edge cases
@@ -3664,7 +3792,7 @@ def main(save_stage_inputs=None):
     done("soak")
 
     kernels = (knn_rows + desk_rows + merge_kernel_rows + batch_rows + dist_rows + soak_rows
-               + tridiag_rows + imu_rows)
+               + tridiag_rows + imu_rows + voxel_rows)
     for r in kernels:
         r["floor_ms"] = floor
         if "K" in r:

@@ -10,11 +10,11 @@ def wrappers():
     count, also while a caller has rebound `merge.merge_rows` or
     `block_tridiag.block_tridiag_solve` to a recording or timing wrapper
     around it."""
-    from . import block_tridiag, deskew, imu_propagate, knn, merge
+    from . import block_tridiag, deskew, imu_propagate, knn, merge, voxel_sums
 
     return {"knn_window": knn.knn_window, "deskew": deskew.deskew_points,
             "merge_rows": merge._counted, "block_tridiag": block_tridiag._counted,
-            "imu_propagate": imu_propagate.mean_chain}
+            "imu_propagate": imu_propagate.mean_chain, "voxel_sums": voxel_sums.voxel_sums}
 
 
 def reset_launches():

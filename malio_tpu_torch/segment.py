@@ -5,7 +5,7 @@ On the card `index_add_` sums with atomics, in an order that changes from
 run to run, so float sums (and every gate that reads them) would too.
 `segment_sum` sorts the rows by id (stably, so each segment keeps row
 order) and sums every contiguous segment sequentially with
-`torch.segment_reduce`, as `preprocess.voxel_downsample` does: the result
+`torch.segment_reduce`, as `preprocess.voxel_sums_plain` does: the result
 is the same bits on every run, and each segment is summed in the order a
 sequential scatter-add takes.
 

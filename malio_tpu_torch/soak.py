@@ -39,7 +39,7 @@ MAP_SLOTS = 1 << 19
 # ~30 map revisits over City01's length
 WORLD = dict(n_planes=96, extent=40.0, patch=10.0, grid=0.3)
 RANGE_MAX = 35.0
-KERNELS = ("knn_window", "deskew", "merge_rows", "imu_propagate")
+KERNELS = ("knn_window", "deskew", "merge_rows", "imu_propagate", "voxel_sums")
 
 
 def soak_sequence(duration, points, seed=0):

@@ -698,7 +698,8 @@ def test_compiled_round_replays_the_eager_round(card, B):
         lambda a: a[:, None], groups))
     cr = pipeline._compiled_round(cfg, batched[0], tree.index(batched[1], 0))
     assert cr.replays >= 8 and cr.nodes
-    for name in ("knn_window", "deskew", "merge_rows", "imu_propagate"):  # the round's kernels
+    for name in ("knn_window", "deskew", "merge_rows", "imu_propagate",
+                 "voxel_sums"):  # the round's kernels
         fn = ops.wrappers()[name]
         per_round = cr.launches[name]
         assert sum(per_round.values()) >= 1, name
@@ -1052,8 +1053,9 @@ def test_mp_round_over_nccl_replays_the_eager_round(nccl_inputs, mesh):
         assert per_replay["knn_window"] == 2 and per_replay["deskew"] == 1, c
         assert per_replay["merge_rows"] == 1 and c["collectives"]["calls"] > 0, c
         assert per_replay["imu_propagate"] == 3, c  # one a propagation pass
+        assert per_replay["voxel_sums"] == 1, c  # the downsample of the joined slices
         # the warm-up round and the replays
-        for name in ("knn_window", "deskew", "merge_rows", "imu_propagate"):
+        for name in ("knn_window", "deskew", "merge_rows", "imu_propagate", "voxel_sums"):
             assert sum(s["launches"][name].values()) == (NCCL_ROUNDS + 1) * per_replay[name]
         assert s["collectives_per_round"][1:] == [c["collectives"]["calls"]] * (NCCL_ROUNDS - 1)
     for s in eager[2]:

@@ -95,23 +95,36 @@ def test_steady_mixed_round_reads_nothing_on_the_host_and_matches_jax_vmap():
 
 def test_voxel_downsample_counts_without_bincount_match_jax():
     """Two sequences of three LiDARs in one call, caps that overflow into
-    the dump segment and groups with no valid point."""
+    the dump segment and groups with no valid point; then valid points
+    planted in the cell whose hash is the JAX package's masked key
+    (0xFFFFFFFF), so there they share the masked slots' segment: in a
+    group with masked slots, in one with no valid point besides them and
+    in one with no masked slot."""
     rng = np.random.default_rng(3)
     pts = rng.uniform(-4, 4, size=(2, 3, 300, 3))
     aux = rng.uniform(0, 5, size=(2, 3, 300, 1))
     mask = rng.uniform(size=(2, 3, 300)) < 0.8
     mask[1, 2] = False
-    args = [torch.as_tensor(a) for a in (pts, aux, mask)]
-    for cap in (40, 300):
-        with HostReads() as h:
-            got = tpre.voxel_downsample(*args, 0.9, cap)
-        assert h.seen == []
-        for b in range(2):
-            for lid in range(3):
-                want = jpre.voxel_downsample(jnp.asarray(pts[b, lid]), jnp.asarray(aux[b, lid]),
-                                             jnp.asarray(mask[b, lid]), 0.9, cap)
-                for g, w in zip(got, want):
-                    np.testing.assert_allclose(g[b, lid].numpy(), np.asarray(w), atol=1e-12)
+    planted = pts.copy(), mask.copy()
+    cell = np.asarray([1195, 544, 0])  # spatial hash 0xFFFFFFFF
+    for (b, lid, slot, n) in ((0, 0, 7, 3), (1, 2, 290, 2), (0, 2, 100, 4)):
+        planted[0][b, lid, slot:slot + n] = (cell + np.linspace(0.1, 0.8, n)[:, None]) * 0.9
+        planted[1][b, lid, slot:slot + n] = True
+    planted[1][0, 2] = True
+    assert int(tpre.spatial_hash(torch.as_tensor(cell))) == tpre.MASK32
+    for pts, mask in ((pts, mask), planted):
+        args = [torch.as_tensor(a) for a in (pts, aux, mask)]
+        for cap in (40, 300):
+            with HostReads() as h:
+                got = tpre.voxel_downsample(*args, 0.9, cap)
+            assert h.seen == []
+            for b in range(2):
+                for lid in range(3):
+                    want = jpre.voxel_downsample(jnp.asarray(pts[b, lid]),
+                                                 jnp.asarray(aux[b, lid]),
+                                                 jnp.asarray(mask[b, lid]), 0.9, cap)
+                    for g, w in zip(got, want):
+                        np.testing.assert_allclose(g[b, lid].numpy(), np.asarray(w), atol=1e-12)
 
 
 def test_segment_sum_counts_without_bincount_match_jax():

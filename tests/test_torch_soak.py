@@ -97,7 +97,7 @@ def test_soak_run_matches_jax_at_the_soak_config():
     assert len(res["chunk_s"]) == res["rounds"] // CHUNK
     assert res["memory"] == []  # no card
     assert all(c == {"knn_window": {}, "deskew": {}, "merge_rows": {}, "block_tridiag": {},
-                     "imu_propagate": {}} for c in res["launches"])
+                     "imu_propagate": {}, "voxel_sums": {}} for c in res["launches"])
 
 
 def test_quartiles():
